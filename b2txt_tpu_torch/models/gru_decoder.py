@@ -10,8 +10,11 @@ Parameters carry the reference checkpoint's names (``day_weights.{i}``,
 ``gru.bias_ih_l{k}``, ``gru.bias_hh_l{k}``, ``out.weight``, ``out.bias``,
 ``h0``), so a reference ``state_dict`` loads with ``load_state_dict``.
 The input projection and the head are ``torch.matmul``; each layer's
-recurrence goes through ``ops.gru.gru_layer`` (the CUDA kernel on the card).
-Training-mode dropout is not ported yet.
+recurrence goes through ``ops.gru.gru_layer``, differentiable, with the CUDA
+kernels K1 (forward) and K2 (backward) on the card. ``training=True`` adds
+the reference's input dropout (after softsign, before patching) and
+inter-layer dropout (not after the last layer), drawn from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,13 @@ def _orthogonal(shape, generator) -> torch.Tensor:
 
 def _uniform_pm(shape, bound, generator) -> torch.Tensor:
     return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as the JAX package applies it: keep with probability
+    1 - p, scale the kept values by 1 / (1 - p), in x's dtype."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - p)
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def extract_patches(x: torch.Tensor, patch_size: int, patch_stride: int) -> torch.Tensor:
@@ -124,8 +134,13 @@ class GRUDecoder(nn.Module):
         return_state: bool = False,
         skip_day_layer: bool = False,
         compute_dtype: torch.dtype = torch.float32,
+        training: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """x: (B, T, D) features, day_idx: (B,) int day indices.
+
+        ``training=True`` applies input and inter-layer dropout with the
+        config's rates, drawn from ``generator`` (on the model's device).
 
         ``skip_day_layer=True`` takes inputs already day-projected and patched
         (B, P, patch_size*D) — the streaming path, which feeds patch windows
@@ -136,6 +151,9 @@ class GRUDecoder(nn.Module):
         H = self.h0.shape[-1]
         if not skip_day_layer:
             x = self.day_layer(x, day_idx, compute_dtype)
+            p_in = self.cfg.input_network.input_layer_dropout
+            if training and p_in > 0:
+                x = dropout(x, p_in, generator)
             if self.patch_size > 0:
                 x = extract_patches(x, self.patch_size, self.patch_stride)
         x = x.to(compute_dtype)
@@ -157,6 +175,8 @@ class GRUDecoder(nn.Module):
                 h[k].contiguous(),
             )
             finals.append(h_k)
+            if training and self.cfg.rnn_dropout > 0 and k < self.n_layers - 1:
+                x = dropout(x, self.cfg.rnn_dropout, generator)
 
         logits = torch.matmul(x, self.out.weight.to(compute_dtype).t()) + self.out.bias.to(compute_dtype)
         if return_state:

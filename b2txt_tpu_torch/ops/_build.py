@@ -74,14 +74,25 @@ def build(source: str) -> Built:
     return Built(ctypes.CDLL(str(lib_path)), lib_path, seconds, report)
 
 
-@functools.lru_cache(maxsize=None)
-def gru_fwd_library() -> Built:
-    """K1, ``csrc/gru_fwd.cu``, with its C signature declared."""
-    built = build("gru_fwd.cu")
-    fn = built.lib.b2t_gru_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _declare(built: Built, fn_name: str, n_pointers: int, n_ints: int) -> Built:
+    """Declare ``fn_name(n_pointers pointers, n_ints ints, stream) -> int``
+    and the library's error-string function."""
+    fn = getattr(built.lib, fn_name)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = built.lib.b2t_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return built
+
+
+@functools.lru_cache(maxsize=None)
+def gru_fwd_library() -> Built:
+    """K1, ``csrc/gru_fwd.cu``, with its C signature declared."""
+    return _declare(build("gru_fwd.cu"), "b2t_gru_fwd", 6, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def gru_bwd_library() -> Built:
+    """K2, ``csrc/gru_bwd.cu``, with its C signature declared."""
+    return _declare(build("gru_bwd.cu"), "b2t_gru_bwd", 10, 4)

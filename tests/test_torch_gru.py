@@ -30,12 +30,15 @@ def test_reference_matches_pallas_interpret(rng, B, T, H):
 
 
 def test_cpu_tensors_take_plain_version_without_launch(rng, monkeypatch):
-    monkeypatch.setattr(port_gru.gru_layer, "launches", 0)
-    args = [torch.from_numpy(a) for a in _inputs(rng, 2, 5, 8)]
+    monkeypatch.setattr(port_gru.gru_layer_forward, "launches", 0)
+    monkeypatch.setattr(port_gru.gru_layer_backward, "launches", 0)
+    args = [torch.from_numpy(a).requires_grad_() for a in _inputs(rng, 2, 5, 8)]
     out, hf = port_gru.gru_layer(*args)
     ref_out, ref_hf = port_gru.gru_layer_reference(*args)
     assert torch.equal(out, ref_out) and torch.equal(hf, ref_hf)
-    assert port_gru.gru_layer.launches == 0
+    (out.sum() + hf.sum()).backward()
+    assert port_gru.gru_layer_forward.launches == 0
+    assert port_gru.gru_layer_backward.launches == 0
 
 
 def test_reference_bf16_rounds_each_step(rng):

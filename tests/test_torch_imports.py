@@ -18,6 +18,8 @@ _CHILD = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["b2txt_tpu"] = None
+sys.modules["triton"] = None       # triton and h5py load only inside functions
+sys.modules["h5py"] = None
 import b2txt_tpu_torch
 names = ["b2txt_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(b2txt_tpu_torch.__path__, "b2txt_tpu_torch.")
@@ -40,7 +42,12 @@ def test_every_module_imports_without_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["failed"] == {}
     expected = {"b2txt_tpu_torch.ops.gru", "b2txt_tpu_torch.serve.service",
-                "b2txt_tpu_torch.evaluate.harness", "b2txt_tpu_torch.decode.lmbeam"}
+                "b2txt_tpu_torch.evaluate.harness", "b2txt_tpu_torch.decode.lmbeam",
+                "b2txt_tpu_torch.ops.augment", "b2txt_tpu_torch.ops.preprocess",
+                "b2txt_tpu_torch.ops.ctc", "b2txt_tpu_torch.train.trainer",
+                "b2txt_tpu_torch.train.optimizer", "b2txt_tpu_torch.train.checkpoint",
+                "b2txt_tpu_torch.data.loader", "b2txt_tpu_torch.data.sampler",
+                "b2txt_tpu_torch.data.hdf5_store", "b2txt_tpu_torch.utils.logging"}
     assert expected <= set(report["names"])
 
 

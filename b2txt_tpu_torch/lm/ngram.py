@@ -181,12 +181,18 @@ def train_ngram(
     )
     V = len(vocab_words)
 
+    # the unigram normalizers do not depend on the word: summed once here,
+    # not in every call (a sum over the vocabulary per word is quadratic)
+    uni_total = (sum(c for g, c in counts[0].items() if g != (BOS,)) if order == 1
+                 else sum(cont[0].values()))
+    uni_types = len(cont[0])
+
     def unigram_p(w: str) -> float:
         if order == 1:
-            total = sum(c for g, c in counts[0].items() if g != (BOS,))
+            total = uni_total
             return (counts[0].get((w,), 0) + 0.5) / (total + 0.5 * V)
-        total = sum(cont[0].values())
-        nt = len(cont[0])
+        total = uni_total
+        nt = uni_types
         disc = max(cont[0].get((w,), 0) - discount, 0.0) / max(total, 1)
         lam = discount * nt / max(total, 1)
         return disc + lam / V  # uniform floor over the V supported types

@@ -96,3 +96,9 @@ def gru_fwd_library() -> Built:
 def gru_bwd_library() -> Built:
     """K2, ``csrc/gru_bwd.cu``, with its C signature declared."""
     return _declare(build("gru_bwd.cu"), "b2t_gru_bwd", 10, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def row_gather_library() -> Built:
+    """K4, ``csrc/row_gather.cu``, with its C signature declared."""
+    return _declare(build("row_gather.cu"), "b2t_row_gather", 3, 3)

@@ -15,8 +15,10 @@ Logits arrive in the wire channel order [BLANK, SIL, phones...] (what
 evaluate_model.py:190 sends after rearrange_speech_logits_pt) or the model
 order [BLANK, phones..., SIL]; the service permutes internally.
 
-Counterpart of ``b2txt_tpu/serve/service.py`` with the python searcher
-backend; the native and device backends raise ``NotImplementedError``.
+Counterpart of ``b2txt_tpu/serve/service.py`` with the python searcher and
+the device searcher (``decode/lmbeam_device.py``, built on the CUDA card; a
+searcher built elsewhere, e.g. on the CPU for tests, is passed as
+``searcher=``); the native backend raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -98,9 +100,10 @@ def _make_searcher(
     lm: NGramLM,
     config: DecodeConfig,
 ):
-    """Construct the requested searcher backend. The port has the python
-    searcher (``decode/lmbeam.py``, the oracle the other two are held to);
-    the native and device searchers wait for later slices."""
+    """Construct the requested searcher backend: the python searcher
+    (``decode/lmbeam.py``, the oracle the others are held to) or the device
+    searcher on the CUDA card. The native searcher waits for a later
+    slice."""
     # lattice n-best (deep candidate lists from the provenance graph —
     # decode/lattice.py) requires the Kaldi-style ngram state space
     if config.lattice_nbest and config.sum_mode:
@@ -113,9 +116,15 @@ def _make_searcher(
     if backend == "python":
         return LexiconBeamSearch(lexicon, lm, config, state_key=state_key)
     if backend == "device":
-        raise NotImplementedError(
-            "the device searcher is not ported yet (ROADMAP.md queue 1, items 3-5)"
-        )
+        from ..decode.lmbeam_device import DeviceLexiconBeamSearch
+
+        if config.lattice_nbest:
+            raise ValueError(
+                "lattice_nbest needs the 'native' (C++ lattice, like the "
+                "reference's) or 'python' backend; the device searcher "
+                "returns the beam pool"
+            )
+        return DeviceLexiconBeamSearch(lexicon, lm, config)
     if backend == "native":
         raise NotImplementedError(
             "the native C++ searcher is not ported yet (ROADMAP.md queue 1, item 6)"
@@ -128,8 +137,9 @@ def _make_searcher(
 class DecoderService:
     """reset / update_params / decode_chunk / finalize over a fused beam search.
 
-    ``searcher_backend`` selects the engine. The port has "python" (the
-    oracle searcher on the host); "native" and "device" are not ported yet.
+    ``searcher_backend`` selects the engine: "device" (the batched searcher
+    on the CUDA card) or "python" (the oracle; slow, for
+    tests and small vocabularies). "native" is not ported yet.
     """
 
     def __init__(
@@ -141,24 +151,55 @@ class DecoderService:
         llm: Optional[LLMScorer] = None,
         channel_order: str = "lm",
         searcher_backend: str = "python",
+        searcher: Optional[Any] = None,
         llm_group_candidates: int = 0,
     ):
         """``llm_group_candidates`` > 0 groups the LLM forwards of
         consecutive utterances' n-best lists into one packed call of up to
         that many candidates (output-identical — decode/rescore.py
         llm_rescore_group_async; only when no conversational context is
-        set). 0 = one call per utterance."""
+        set). 0 = one call per utterance. An already-built ``searcher`` (e.g.
+        a DeviceLexiconBeamSearch with its tables on the card) can be
+        injected to avoid rebuilding it, or to run it on the CPU; it must
+        match ``searcher_backend``."""
         if channel_order not in ("lm", "model"):
             raise ValueError(f"channel_order must be 'lm' or 'model', got {channel_order!r}")
         self.config = config or DecodeConfig()
         self.searcher_backend = searcher_backend
-        self.searcher = _make_searcher(searcher_backend, lexicon, lm, self.config)
+        self.searcher = searcher if searcher is not None else _make_searcher(
+            searcher_backend, lexicon, lm, self.config)
         self.rescore_lm = rescore_lm
+        # device backend: rescore the FULL candidate pool on the card (native
+        # pool-rescore parity, runtime/decoder.cc:675-690) instead of the
+        # post-cut host list rescore
+        self._sync_device_rescore()
         self.llm = llm
         self.llm_group_candidates = int(llm_group_candidates)
         self.channel_order = channel_order
         self.context: str = ""
         self.stats: Dict[str, float] = {}
+
+    def _sync_device_rescore(self) -> None:
+        """Keep the device searcher's on-card pool rescore in step with
+        cfg.rescore (runtime update_params can toggle it)."""
+        s = self.searcher
+        if self.searcher_backend != "device" or not hasattr(s, "attach_rescore_lm"):
+            self._internal_rescore = False
+            return
+        if self.config.rescore and self.rescore_lm is not None:
+            if getattr(s, "rescore_lm", None) is None:
+                cached = getattr(self, "_device_rescore_cache", None)
+                if cached is not None:
+                    # re-enable without repacking the unpruned table
+                    s.rescore_lm = cached
+                else:
+                    s.attach_rescore_lm(self.rescore_lm)
+            self._internal_rescore = True
+        else:
+            if getattr(s, "rescore_lm", None) is not None:
+                self._device_rescore_cache = s.rescore_lm
+            s.rescore_lm = None
+            self._internal_rescore = False
 
     # ------------------------------------------------------------- protocol
     def reset(self) -> None:
@@ -175,6 +216,7 @@ class DecoderService:
         cfg = self.config.replace(**kwargs)
         self.config = cfg
         self.searcher.set_opt(cfg)
+        self._sync_device_rescore()
         LOG.info(f"Updated language model params: {kwargs}")
         return cfg.to_dict()
 
@@ -201,13 +243,14 @@ class DecoderService:
         return self._finalize_begin(results)()
 
     def _host_finalize(self, results: List[DecodeResult]):
-        """Host finalize for one utterance — unpruned n-gram rescore then
-        augment_nbest. Returns the prepped n-best
-        list (possibly empty)."""
+        """Host finalize for one utterance — unpruned n-gram rescore (unless
+        already done on the card) then augment_nbest. Returns the prepped
+        n-best list (possibly empty)."""
         cfg = self.config
         nbest = results_to_nbest(results)
 
-        if cfg.rescore and self.rescore_lm is not None and nbest:
+        if (cfg.rescore and self.rescore_lm is not None and nbest
+                and not self._internal_rescore):
             t = time.time()
             nbest = rescore_nbest_with_ngram(nbest, self.rescore_lm)
             self.stats["rescore_time"] = time.time() - t
@@ -285,19 +328,48 @@ class DecoderService:
         return self.finalize()
 
     def decode_utterances(
-        self, logits_list: Sequence[np.ndarray]
+        self, logits_list: Sequence[np.ndarray], batch_size: int = 32
     ) -> List[FinalOutput]:
-        """Decode many utterances serially on the host searcher, with
-        finalize pipelined: the LLM forward of utterance i (if any) overlaps
-        the beam search of utterance i+1."""
+        """Decode many utterances. With the device backend the set runs
+        through the batched device search (DeviceLexiconBeamSearch
+        .decode_batches) in batches of ``batch_size``; the python backend
+        decodes serially. Finalize is pipelined: the LLM forward of
+        utterance i (if any) overlaps the search of utterance i+1."""
+        searcher = self.searcher
+        if self.searcher_backend != "device" or not hasattr(searcher, "decode_batches"):
+            def stream():
+                for logits in logits_list:
+                    self.reset()
+                    self.decode_chunk(logits)
+                    yield 1, [self.searcher.finish_decoding()]
 
-        def stream():
-            for logits in logits_list:
-                self.reset()
-                self.decode_chunk(logits)
-                yield 1, [self.searcher.finish_decoding()]
+            return self._finalize_pipelined(stream())
 
-        return self._finalize_pipelined(stream())
+        prepped = []
+        for logits in logits_list:
+            logits = np.asarray(logits, np.float32).reshape(-1, 41)
+            if self.channel_order == "lm":
+                logits = lm_order_to_model_order(logits)
+            x = logits - logits.max(axis=-1, keepdims=True)
+            prepped.append(x - np.log(np.exp(x).sum(-1, keepdims=True)))
+
+        sizes = []
+        batches = []
+        for start in range(0, len(prepped), batch_size):
+            chunk = prepped[start : start + batch_size]
+            n = len(chunk)
+            B = batch_size if len(prepped) > batch_size else n
+            T = max(p.shape[0] for p in chunk)
+            lp = np.full((B, T, 41), -30.0, np.float32)
+            lengths = np.zeros(B, np.int32)
+            for i, p in enumerate(chunk):
+                lp[i, : p.shape[0]] = p
+                lengths[i] = p.shape[0]
+            batches.append((lp, lengths))
+            sizes.append(n)
+        # software-pipelined: batch j+1's device search overlaps batch j's
+        # host-side n-best extraction
+        return self._finalize_pipelined(zip(sizes, searcher.decode_batches(batches)))
 
     def _finalize_pipelined(self, batched_results) -> List[FinalOutput]:
         """Finalize utterances from (n, nbest_lists) pairs with the LLM
@@ -364,3 +436,23 @@ class DecoderService:
         flush()
         outs.extend(p() for p in pending)
         return outs
+
+    def decode_batched_utterances(
+        self, batches: Sequence[tuple], sizes: Optional[Sequence[int]] = None
+    ) -> List[FinalOutput]:
+        """Device-resident batched decode: ``batches`` is a sequence of
+        (log_probs (B, T, 41), lengths (B,)) already in MODEL channel order
+        and log-softmax normalized — typically tensors on the card straight
+        from the RNN forward (``evaluate.harness._batched_inference_device``;
+        at canonical params the searcher keeps them there —
+        lmbeam_device._prep_batch). ``sizes`` gives the REAL utterance count
+        per batch (≤ B, for padded tails). Requires the device backend."""
+        searcher = self.searcher
+        if not hasattr(searcher, "decode_batches"):
+            raise ValueError(
+                "decode_batched_utterances requires the device searcher "
+                f"backend, got {self.searcher_backend!r}"
+            )
+        if sizes is None:
+            sizes = [lp.shape[0] for lp, _ in batches]
+        return self._finalize_pipelined(zip(sizes, searcher.decode_batches(batches)))

@@ -12,7 +12,16 @@ then:
 
 - serves 16 planted requests through the full-width model (512 features,
   5×768 GRU, patch 14/4, 45 days, bf16) and the host beam search over a
-  1,000-word lexicon;
+  1,000-word lexicon, then decodes the same posteriors with the device
+  searcher on the card and on the CPU (``search_parity``);
+- runs the connected pipeline at the JAX package's bench scale
+  (``serve_connected``): a 125,000-word lexicon, a pruned trigram in bucket
+  tables on the card with the unpruned one for the on-card pool rescore, 512
+  planted requests in batches of 128 whose posteriors go from the GRU
+  straight into the device beam search;
+- holds the row gather K4 bit for bit against its plain version, runs its
+  path (``b2txt_tpu_torch.scripts.profile_gather``'s three cases) and times
+  it on the decode LM's own bucket table (``kernel_row_gather``);
 - trains the full-width model (``TrainConfig()`` defaults: bf16, dropout,
   augmentation, batch 64 over 4 days) for 20 steps with the augmentations in
   PyTorch and 5 with the fused kernel, on synthetic trials in memory, and
@@ -71,6 +80,16 @@ N_REQUESTS = 16
 BINS = 520          # bins per request: 125 patch frames after smoothing and patching
 VOCAB = 1000
 SEED = 0
+# the connected pipeline at bench.py's reference scale (BENCH_r05.json)
+CONNECTED_VOCAB, CONNECTED_REQUESTS, CONNECTED_BATCH = 125_000, 512, 128
+PRUNE_THRESHOLD = 3e-8
+CONNECTED_DECODE = dict(acoustic_scale=0.325, blank_penalty=90.0, nbest=100, beam=17.0,
+                        beam_width=48, first_beam_size=8, sum_mode=False, rescore=True)
+# device searcher on the card against itself on the CPU: the same float32
+# ops, but exp/log1p may differ in the last bit between the two devices, and
+# one ulp per frame over 125 frames of scores near 100 sums to ~1e-4
+SEARCH_TOL = 1e-4        # relative and absolute, as np.allclose
+GATHER_GRID = [(rw, g) for rw in (4, 64, 128) for g in (1, 37, 4096)]
 
 
 def emit(obj) -> None:
@@ -108,10 +127,12 @@ def phase_build():
     """Every CUDA source of the port, one nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from b2txt_tpu_torch.ops._build import gru_bwd_library, gru_fwd_library
+    from b2txt_tpu_torch.ops._build import (gru_bwd_library, gru_fwd_library,
+                                            row_gather_library)
 
     t0 = time.perf_counter()
-    libs = {"gru_fwd.cu": gru_fwd_library, "gru_bwd.cu": gru_bwd_library}
+    libs = {"gru_fwd.cu": gru_fwd_library, "gru_bwd.cu": gru_bwd_library,
+            "row_gather.cu": row_gather_library}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(fn) for name, fn in libs.items()}
         built = {name: f.result() for name, f in futures.items()}
@@ -553,7 +574,7 @@ def phase_train(counters):
            for label, training in (("train", True), ("eval", False))}}
 
     cfg.use_fused_preprocess = False
-    profile = profile_stage1(lambda: trainer.train_step(batches[1]), top=8)
+    profile = profile_call(lambda: trainer.train_step(batches[1]), top=8)
     t1 = time.perf_counter()
     val = trainer.validation()
     val_s = time.perf_counter() - t1
@@ -668,12 +689,13 @@ def phase_serve(cfg, device: str, compute_dtype, n_requests: int, bins: int,
            "exact": exact, "world_build_s": world_s,
            "main_path_stage1_s": t1 - t0, "decode_s_per_request": (t2 - t1) / n_requests,
            "launches": launches}
-    return fig, model, feats_list, infer, logits, outs, requests
+    return fig, model, feats_list, infer, logits, outs, requests, (lexicon, lm)
 
 
-def profile_stage1(run, top: int = 6):
-    """One call (a stage-1 batch, a training step) under torch.profiler: device time by kernel name, the
-    summed device time and the host wall time around the call."""
+def profile_call(run, top: int = 6):
+    """One call (a stage-1 batch, a training step, a decode batch) under
+    torch.profiler: device time and launches by kernel name, their sums, and
+    the host wall time around the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -699,6 +721,7 @@ def profile_stage1(run, top: int = 6):
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
     return {"wall_ms": wall_ms, "device_ms": device_ms, "device_idle_share": 1 - device_ms / wall_ms,
+            "kernel_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:80], "ms": ms, "calls": n} for ms, k, n in rows[:top]]}
 
 
@@ -738,6 +761,250 @@ def check_train(fig, n_layers) -> list:
     return problems
 
 
+def real_rows(out):
+    """A FinalOutput's n-best rows of real hypotheses: beams at the search's
+    NEG score floor carry payloads that depend on how top-k orders ties."""
+    return [r for r in out.nbest if r[1] > -1e29]
+
+
+def phase_search_parity(world, logits, requests, py_outs):
+    """The serve phase's posteriors through DecoderService(searcher_backend=
+    "device") on the card: every planted sentence, the python oracle's
+    sentences, and the n-best of the same searcher on the CPU."""
+    from b2txt_tpu_torch.decode.lmbeam_device import DeviceLexiconBeamSearch
+    from b2txt_tpu_torch.serve import DecoderService
+    from b2txt_tpu_torch.utils.config import DecodeConfig
+
+    lexicon, lm = world
+    cfg = DecodeConfig(acoustic_scale=0.325, blank_penalty=90.0, nbest=100)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        # the service builds its searcher on the card; the CPU one is passed in
+        svc = DecoderService(lexicon, lm, cfg, searcher_backend="device", channel_order="model",
+                             searcher=None if device == "cuda" else
+                             DeviceLexiconBeamSearch(lexicon, lm, cfg, device="cpu"))
+        t1 = time.perf_counter()
+        runs[device] = (svc.decode_utterances(logits, batch_size=len(logits)),
+                        t1 - t0, time.perf_counter() - t1)
+    outs, cpu_outs = runs["cuda"][0], runs["cpu"][0]
+    same_sentences, max_abs, scores_ok = True, 0.0, True
+    for o, c in zip(outs, cpu_outs):
+        a, b = real_rows(o), real_rows(c)
+        if not a or [r[0] for r in a] != [r[0] for r in b]:
+            same_sentences = False
+            continue
+        x = np.array([[r[1], r[2], r[4]] for r in a], np.float64)
+        y = np.array([[r[1], r[2], r[4]] for r in b], np.float64)
+        max_abs = max(max_abs, float(np.abs(x - y).max()))
+        scores_ok &= bool(np.allclose(x, y, rtol=SEARCH_TOL, atol=SEARCH_TOL))
+    fig = {"phase": "search_parity", "requests": len(logits), "vocab": VOCAB,
+           "config": cfg.to_dict(),
+           "exact": sum(o.sentence == s for o, (s, _) in zip(outs, requests)),
+           "same_as_python_oracle": sum(o.sentence == p.sentence for o, p in zip(outs, py_outs)),
+           "nbest_rows": [len(real_rows(o)) for o in outs],
+           "nbest_same_sentences_as_cpu": same_sentences,
+           "nbest_max_abs_diff_vs_cpu": max_abs, "tol": SEARCH_TOL,
+           "searcher_build_s": {d: r[1] for d, r in runs.items()},
+           "decode_s_per_request": {d: r[2] / len(logits) for d, r in runs.items()}}
+    fig["ok"] = (fig["exact"] == len(logits) == fig["same_as_python_oracle"]
+                 and same_sentences and scores_ok)
+    emit(fig)
+    return fig
+
+
+def phase_serve_connected(cfg, device: str, counters):
+    """The connected pipeline at bench.py's reference scale: planted
+    features → smoothing → GRUDecoder (K1) → log-softmax on the card →
+    DecoderService.decode_batched_utterances (device searcher, pruned trigram
+    in bucket tables, on-card unpruned pool rescore). Returns the figures,
+    the searcher and one batch of posteriors."""
+    import torch
+
+    from b2txt_tpu_torch.data.synthetic import phoneme_code
+    from b2txt_tpu_torch.decode.lmbeam_device import DeviceLexiconBeamSearch
+    from b2txt_tpu_torch.evaluate.harness import _batched_inference_device
+    from b2txt_tpu_torch.models import gru_decoder
+    from b2txt_tpu_torch.models.gru_decoder import GRUDecoder
+    from b2txt_tpu_torch.ops.gru import gru_layer_reference
+    from b2txt_tpu_torch.models.planted import features_on_device, planted_params
+    from b2txt_tpu_torch.serve import DecoderService
+    from b2txt_tpu_torch.utils.config import DecodeConfig
+    from b2txt_tpu_torch.utils.metrics import calculate_aggregate_error_rate
+
+    t0 = time.perf_counter()
+    lexicon, lm_unpruned, wl, rng = build_world(CONNECTED_VOCAB, SEED)
+    t1 = time.perf_counter()
+    lm = lm_unpruned.prune(PRUNE_THRESHOLD)
+    t2 = time.perf_counter()
+    requests = plant_requests(lexicon, wl, rng, CONNECTED_REQUESTS, BINS)
+    dcfg = DecodeConfig(**CONNECTED_DECODE)
+    world_s, prune_s = t1 - t0, t2 - t1
+    t3 = time.perf_counter()
+    searcher = DeviceLexiconBeamSearch(lexicon, lm, dcfg, max_homophones=4,
+                                       rescore_lm=lm_unpruned, state_key="history",
+                                       device=device)
+    torch.cuda.synchronize(device)
+    table_s = time.perf_counter() - t3
+    service = DecoderService(lexicon, lm, dcfg, rescore_lm=lm_unpruned, channel_order="model",
+                             searcher_backend="device", searcher=searcher)
+    sizes_bytes = {"decode_lm": searcher.dev_lm.table_bytes,
+                   "rescore_lm": searcher.rescore_lm.table_bytes,
+                   "trie": searcher.trie.nbytes}
+
+    code = phoneme_code(cfg.model.n_input_features)
+    model = GRUDecoder(cfg.model, 45, 41, device=device)
+    model.load_state_dict(planted_params(cfg.model, 45, code))
+    labels = torch.from_numpy(np.stack([lab for _, lab in requests])).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    feats_list = list(features_on_device(torch.from_numpy(code).to(device), labels, gen,
+                                         noise=0.3).cpu().numpy())
+    infer = dict(day_idx=0, cfg=cfg, compute_dtype=torch.bfloat16,
+                 batch_size=CONNECTED_BATCH, time_bucket=8)
+
+    def pipeline(feats):
+        t0 = time.perf_counter()
+        batches, sizes, order, _ = _batched_inference_device(model, feats, **infer)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        outs = service.decode_batched_utterances(batches, sizes)
+        return outs, order, batches, t1 - t0, time.perf_counter() - t1
+
+    pipeline(feats_list[:CONNECTED_BATCH])   # warm-up: one batch
+    for fn in counters.values():
+        fn.launches = 0
+    outs, order, batches, stage1_s, decode_s = pipeline(feats_list)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_batches = len(batches)
+
+    hyp = [None] * len(requests)
+    for i, o in zip(order, outs):
+        hyp[i] = o
+    sents = [s for s, _ in requests]
+    exact = sum(h.sentence == s for h, s in zip(hyp, sents))
+    search_errors = 0
+    for h, s in zip(hyp, sents):
+        truth = [r for r in h.nbest if r[0] == s]
+        if h.sentence != s and truth and h.nbest and truth[0][4] > h.nbest[0][4]:
+            search_errors += 1
+    wer, lo, hi, _ = calculate_aggregate_error_rate(
+        [s.split() for s in sents], [h.sentence.split() for h in hyp], seed=0)
+
+    # one batch's log-probs through the kernels and with the plain recurrence
+    # patched in. The planted W_hh is 0, so this holds K1's row and gate
+    # indexing at B=128; kernel_gru_fwd's (128, 125, 768, decoder_init) case
+    # holds its h·W_hh product at this shape
+    first = feats_list[:CONNECTED_BATCH]
+    kernel_lp = _batched_inference_device(model, first, **infer)[0][0][0]
+    with mock.patch.object(gru_decoder, "gru_layer", gru_layer_reference):
+        plain_lp = _batched_inference_device(model, first, **infer)[0][0][0]
+    stage1_vs_plain = {
+        "max_abs_err": float((kernel_lp - plain_lp).abs().max()),
+        "argmax_equal": bool(torch.equal(kernel_lp.argmax(-1), plain_lp.argmax(-1))),
+        "within_tol": bool(torch.allclose(kernel_lp, plain_lp, rtol=2e-2, atol=2e-2)),
+        "finite": bool(torch.isfinite(kernel_lp).all()),
+        "tol": "rtol=atol=2e-2 (bf16)", "shape": list(kernel_lp.shape)}
+
+    # one batch again, split: issuing the frames (host), the device
+    # finishing them, then rescore + n-best extraction (collect)
+    lp, lens = batches[0]
+    t0 = time.perf_counter()
+    handle = searcher._dispatch_batch(lp, lens)
+    t1 = time.perf_counter()
+    if handle.event is not None:
+        handle.event.synchronize()
+    t2 = time.perf_counter()
+    searcher._collect_batch(handle)
+    t3 = time.perf_counter()
+    split = {"issue_ms": (t1 - t0) * 1e3, "device_wait_ms": (t2 - t1) * 1e3,
+             "collect_ms": (t3 - t2) * 1e3}
+    profile = profile_call(lambda: searcher._collect_batch(searcher._dispatch_batch(lp, lens)),
+                             top=10)
+    fig = {"phase": "serve_connected", "vocab": CONNECTED_VOCAB, "order": 3,
+           "prune_threshold": PRUNE_THRESHOLD, "decode": CONNECTED_DECODE,
+           "max_homophones": 4, "H": searcher.H, "state_key": "history",
+           "requests": len(requests), "batch": CONNECTED_BATCH, "bins": BINS,
+           "frames": int(lens.max()), "words_per_sentence": float(np.mean(
+               [len(s.split()) for s in sents])),
+           "lm_entries": {"decode": searcher.dev_lm.n_entries,
+                          "rescore": searcher.rescore_lm.n_entries},
+           "exact": exact, "search_errors": search_errors, "wer": wer, "wer_ci": [lo, hi],
+           "stage1_vs_plain": stage1_vs_plain,
+           "sentences_per_s": len(requests) / (stage1_s + decode_s),
+           "stage1_ms_per_batch": stage1_s * 1e3 / n_batches,
+           "decode_ms_per_batch": decode_s * 1e3 / n_batches,
+           "one_batch_split": split, "decode_profile": profile,
+           "world_build_s": world_s, "prune_s": prune_s, "table_build_s": table_s,
+           "device_table_bytes": sizes_bytes, "launches": launches}
+    emit(fig)
+    return fig, searcher
+
+
+def gather_entry(p: dict) -> dict:
+    """A gather profile line as kernel figures: ms per call of K4, its plain
+    version (``index_select``) and ``table[idx]``, each timed over the
+    profile's rotated index sets, and the bound: each gathered row read and
+    written once, the indices read."""
+    g, rw = p["gathers"], p["row_bytes"] // 4
+    nbytes = 2 * g * rw * 4 + g * 4
+    return {"rows": p["rows"], "rw": rw, "g": g, "in_flight": p["in_flight"],
+            "max_abs_err": p["max_abs_err"], "ms": p["kernel_ns_per_row"] * g * 1e-6,
+            "plain_ms": p["plain_ns_per_row"] * g * 1e-6,
+            "library_ms": p["torch_ns_per_row"] * g * 1e-6,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def phase_kernel_row_gather(bucket_table):
+    """K4 bit for bit against its plain version over a grid of row widths,
+    gather counts and loads in flight, with repeated indices; then its path,
+    the gather profile's three cases (launches counted there); then on the
+    decode LM's own bucket table with uniform random bucket ids. The profile
+    raises if K4 differs from its plain version in any bit."""
+    import torch
+
+    from b2txt_tpu_torch.ops.gather import row_gather, row_gather_reference
+    from b2txt_tpu_torch.scripts.profile_gather import CASES, bench_case, bench_gather
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    grid_ok = True
+    for rw, g in GATHER_GRID:
+        table = torch.randint(-(1 << 31), (1 << 31) - 1, (1 << 14, rw), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        idx = torch.randint(0, 1 << 14, (g,), generator=gen, device="cuda", dtype=torch.int32)
+        idx[: g // 2] = idx[0]
+        for w in (1, 8, 128):
+            grid_ok &= torch.equal(row_gather(table, idx, in_flight=w),
+                                   row_gather_reference(table, idx))
+    row_gather.launches = 0
+    profile = [bench_case(*case) for case in CASES]
+    launches = row_gather.launches
+    bidx = torch.randint(0, bucket_table.shape[0], (4096,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    bucket = [gather_entry(bench_gather(bucket_table, bidx, w)) for w in (1, 8, 32)]
+    fig = {"phase": "kernel_row_gather", "grid": GATHER_GRID, "grid_in_flight": [1, 8, 128],
+           "grid_bit_exact": bool(grid_ok), "profile_gather": profile,
+           "launches": launches, "main": gather_entry(profile[0]),
+           "decode_lm_bucket_table": bucket}
+    fig["ok"] = bool(grid_ok)
+    emit(fig)
+    return fig
+
+
+def check_connected(fig, n_layers) -> list:
+    problems = []
+    n_batches = -(-fig["requests"] // fig["batch"])
+    if fig["launches"]["gru_fwd"] != n_layers * n_batches:
+        problems.append(f"serve_connected: gru_fwd launched {fig['launches']['gru_fwd']} "
+                        f"times, expected {n_layers * n_batches}")
+    s1 = fig["stage1_vs_plain"]
+    if not (s1["within_tol"] and s1["argmax_equal"] and s1["finite"]):
+        problems.append(f"serve_connected: kernel-path log-probs against the plain path: {s1}")
+    if (fig["exact"], fig["search_errors"], fig["wer"]) != (fig["requests"], 0, 0.0):
+        problems.append(f"serve_connected: {fig['exact']}/{fig['requests']} exact, "
+                        f"{fig['search_errors']} search errors, WER {fig['wer']}")
+    return problems
+
+
 def kernel_entry(name, route, source, replaces, launches, launches_per, k, shape_keys):
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "launches_per": launches_per,
@@ -769,14 +1036,16 @@ def main() -> int:
                   cfg.model.n_units)
     train_shape = (cfg.dataset.batch_size, main_shape[1], cfg.model.n_units)
     phase_gru_witness(*main_shape)
+    connected_shape = (CONNECTED_BATCH,) + main_shape[1:]
     fwd_figs = phase_kernel_gru_fwd(KERNEL_CASES + [main_shape + ("contractive",),
-                                                    main_shape + ("decoder_init",)])
+                                                    main_shape + ("decoder_init",),
+                                                    connected_shape + ("decoder_init",)])
     bwd_figs = phase_kernel_gru_bwd(KERNEL_CASES + [train_shape + ("contractive",),
                                                     train_shape + ("decoder_init",)])
     pre_fig = phase_kernel_fused_preprocess(cfg.dataset.batch_size, BINS,
                                             cfg.model.n_input_features)
 
-    fig, model, feats_list, infer, logits, outs, requests = phase_serve(
+    fig, model, feats_list, infer, logits, outs, requests, world = phase_serve(
         cfg, "cuda", torch.bfloat16, N_REQUESTS, BINS, VOCAB, {"gru_fwd": gru_layer_forward})
     n_batches = fig["batches"]
     # stage-1 time per batch, host clock around work that ends in a sync
@@ -788,7 +1057,7 @@ def main() -> int:
         _batched_inference(model, feats_list, **infer)
     torch.cuda.synchronize()
     fig["stage1_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 / (reps * n_batches)
-    fig["stage1_profile"] = profile_stage1(lambda: _batched_inference(model, feats_list, **infer))
+    fig["stage1_profile"] = profile_call(lambda: _batched_inference(model, feats_list, **infer))
     with mock.patch.object(gru_decoder, "gru_layer", gru_layer_reference):
         plain = _batched_inference(model, feats_list, **infer)
     fig["logits_max_abs_err"] = max(float(np.abs(a - b).max()) for a, b in zip(logits, plain))
@@ -798,6 +1067,16 @@ def main() -> int:
     fig["logits_tol"] = "rtol=atol=2e-2 (bf16)"
     emit(fig)
     problems = check_serve(fig, logits, plain, cfg, main_shape)
+    parity = phase_search_parity(world, logits, requests, outs)
+    if not parity["ok"]:
+        problems.append(f"search_parity: {parity}")
+    conn, searcher = phase_serve_connected(cfg, "cuda", {"gru_fwd": gru_layer_forward})
+    problems += check_connected(conn, cfg.model.n_layers)
+    gather_fig = phase_kernel_row_gather(searcher.dev_lm.table[0])
+    if not gather_fig["ok"] or gather_fig["launches"] == 0:
+        problems.append(f"row_gather disagrees with its plain version or never launched: "
+                        f"{gather_fig['grid_bit_exact']}, {gather_fig['launches']}")
+    del searcher
     train_fig = phase_train({"gru_fwd": gru_layer_forward, "gru_bwd": gru_layer_backward,
                              "fused_preprocess": fused_preprocess})
     problems += check_train(train_fig, cfg.model.n_layers)
@@ -824,6 +1103,11 @@ def main() -> int:
                      runs["fused_preprocess"]["launches"]["fused_preprocess"],
                      f"fused train run: {FUSED_STEPS} steps", pre_fig,
                      ("B", "T", "C")),
+        kernel_entry("row_gather", "cuda", "b2txt_tpu_torch/csrc/row_gather.cu",
+                     "scripts/profile_pallas_gather.py:47", gather_fig["launches"],
+                     "gather profile run: 3 cases, each 1 check + 2 warm-up + 32 timed "
+                     "launches; figures of the first case, over its 32 rotated index sets",
+                     gather_fig["main"], ("rows", "rw", "g", "in_flight")),
     ]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -176,3 +176,83 @@ def test_decoder_gradients_on_card_match_plain_path(dtype, tol):
         assert g.abs().max().item() > 0, n
         err = ((kernel[n].double() - g.double()).norm() / g.double().norm()).item()
         assert err <= tol, (n, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rw", [4, 64, 128])
+@pytest.mark.parametrize("g", [1, 37, 4096])
+@pytest.mark.parametrize("in_flight", [1, 8, 128])
+def test_row_gather_kernel_matches_plain_bit_for_bit(rw, g, in_flight):
+    from b2txt_tpu_torch.ops import gather as port_gather
+
+    _need_card()
+    rng = np.random.default_rng(rw * 7 + g)
+    rows = 1 << 12
+    table = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (rows, rw), dtype=np.int64)
+                             .astype(np.int32)).cuda()
+    idx = torch.from_numpy(rng.integers(0, rows, g).astype(np.int32)).cuda()
+    idx[: g // 2] = idx[0]                       # repeated rows
+    before = port_gather.row_gather.launches
+    out = port_gather.row_gather(table, idx, in_flight=in_flight)
+    torch.cuda.synchronize()
+    assert port_gather.row_gather.launches == before + 1
+    assert torch.equal(out, port_gather.row_gather_reference(table, idx.long()))
+
+
+def _small_decode_world():
+    """A 10-word lexicon, a trigram and three noisy planted utterances."""
+    from b2txt_tpu_torch.lm import Lexicon, train_ngram
+
+    lex = {"the": ["DH", "AH"], "cat": ["K", "AE", "T"], "sat": ["S", "AE", "T"],
+           "mat": ["M", "AE", "T"], "on": ["AA", "N"], "their": ["DH", "EH", "R"],
+           "there": ["DH", "EH", "R"], "is": ["IH", "Z"], "hat": ["HH", "AE", "T"],
+           "a": ["AH"]}
+    corpus = [s.split() for s in ("the cat sat on the mat", "there is the cat",
+                                  "the cat is there", "there is a mat",
+                                  "the cat sat on the hat", "a hat is on the mat")] * 3
+    lexicon = Lexicon.from_words(lex)
+    rng = np.random.default_rng(0)
+    lps = []
+    for s in ("there is the cat", "the cat sat on the mat", "a hat is on the mat"):
+        rows = []
+        for pid in lexicon.sentence_to_phonemes(s):
+            for hot in (pid, pid, pid, 0):
+                row = np.full(41, -4.0, np.float32)
+                row[hot] = 0.0
+                rows.append(row)
+        lp = np.stack(rows) + 0.6 * rng.standard_normal((len(rows), 41)).astype(np.float32)
+        lps.append(lp - np.log(np.exp(lp).sum(-1, keepdims=True)))
+    T = max(lp.shape[0] for lp in lps)
+    batch = np.full((len(lps), T, 41), -20.0, np.float32)
+    for i, lp in enumerate(lps):
+        batch[i, : lp.shape[0]] = lp
+    return lexicon, train_ngram(corpus, order=3), train_ngram(corpus, order=2), batch, \
+        np.asarray([lp.shape[0] for lp in lps], np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sum_mode", [True, False])
+def test_device_searcher_on_card_matches_cpu(sum_mode):
+    """The same search on the card and on the CPU: n-best sentences equal,
+    ac/lm scores within 1e-4 (batched path with the pool rescore, and the
+    streaming path)."""
+    from b2txt_tpu_torch.decode.lmbeam_device import NEG, DeviceLexiconBeamSearch
+    from b2txt_tpu_torch.utils.config import DecodeConfig
+
+    _need_card()
+    lexicon, lm, lm2, batch, lens = _small_decode_world()
+    cfg = DecodeConfig(acoustic_scale=0.5, blank_penalty=2.0, nbest=10, beam_width=64,
+                       first_beam_size=8, sum_mode=sum_mode)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        s = DeviceLexiconBeamSearch(lexicon, lm2, cfg, rescore_lm=lm, device=device)
+        out = s.decode_batch(batch, lens)
+        s.reset()
+        s.decode(batch[0, : lens[0]])
+        runs[device] = out + [s.finish_decoding()]
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        a = [r for r in a if r.ac_score > NEG / 2]
+        b = [r for r in b if r.ac_score > NEG / 2]
+        assert b and [r.sentence for r in a] == [r.sentence for r in b]
+        np.testing.assert_allclose([[r.ac_score, r.lm_score] for r in a],
+                                   [[r.ac_score, r.lm_score] for r in b], rtol=1e-4, atol=1e-4)

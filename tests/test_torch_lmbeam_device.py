@@ -1,0 +1,166 @@
+"""The port's device searcher (b2txt_tpu_torch.decode.lmbeam_device, built on
+the CPU) against the JAX package's DeviceLexiconBeamSearch on the same numpy
+log-probs: the same n-best sentences with ac/lm scores within 1e-4, across
+the knob sweep of tests/test_searcher_crosscheck.py, both merge modes, both
+state keys, close_probe_top, lower-order LMs, the batched and the streaming
+paths, and the on-device pool rescore.
+
+Only real hypotheses are compared: beams at the NEG score floor fill the
+beam when fewer than K real candidates exist, and which payloads they carry
+depends on how each top-k orders ties."""
+
+import numpy as np
+import pytest
+import torch
+
+from b2txt_tpu.decode import lmbeam_jax as jlb
+from b2txt_tpu.decode.lmbeam import LexiconBeamSearch as JaxOracle
+from b2txt_tpu.lm import Lexicon as JaxLexicon
+from b2txt_tpu.lm import train_ngram as jax_train_ngram
+from b2txt_tpu.utils.config import DecodeConfig as JaxDecodeConfig
+from b2txt_tpu_torch.decode import lmbeam_device as lb
+from b2txt_tpu_torch.lm import Lexicon, train_ngram
+from b2txt_tpu_torch.utils.config import DecodeConfig
+
+LEX = {
+    "the": ["DH", "AH"], "cat": ["K", "AE", "T"], "sat": ["S", "AE", "T"],
+    "mat": ["M", "AE", "T"], "on": ["AA", "N"], "their": ["DH", "EH", "R"],
+    "there": ["DH", "EH", "R"], "is": ["IH", "Z"], "hat": ["HH", "AE", "T"],
+    "a": ["AH"],
+}
+CORPUS = [
+    "the cat sat on the mat".split(),
+    "there is the cat".split(),
+    "the cat is there".split(),
+    "there is a mat".split(),
+    "the cat sat on the hat".split(),
+    "a hat is on the mat".split(),
+] * 3
+SENTENCES = ["there is the cat", "the cat sat on the mat", "a hat is on the mat"]
+
+# the knob sweep of tests/test_searcher_crosscheck.py:77
+CONFIGS = [
+    dict(acoustic_scale=0.5, blank_penalty=1.0, first_beam_size=0,
+         ctc_blank_skip_threshold=1.0, length_penalty=0.0, beam=0.0),
+    dict(acoustic_scale=0.325, blank_penalty=9.0, first_beam_size=0,
+         ctc_blank_skip_threshold=1.0, length_penalty=0.0, beam=0.0),
+    dict(acoustic_scale=0.5, blank_penalty=1.0, first_beam_size=6,
+         ctc_blank_skip_threshold=1.0, length_penalty=0.0, beam=0.0),
+    dict(acoustic_scale=1.0, blank_penalty=3.0, first_beam_size=10,
+         ctc_blank_skip_threshold=1.0, length_penalty=-0.4, beam=0.0),
+    dict(acoustic_scale=0.5, blank_penalty=1.0, first_beam_size=0,
+         ctc_blank_skip_threshold=0.95, length_penalty=0.0, beam=0.0),
+    dict(acoustic_scale=0.325, blank_penalty=2.0, first_beam_size=8,
+         ctc_blank_skip_threshold=0.9, length_penalty=0.2, beam=17.0),
+    dict(acoustic_scale=0.5, blank_penalty=1.0, first_beam_size=0,
+         ctc_blank_skip_threshold=1.0, length_penalty=0.0, beam=0.0, sum_mode=False),
+    dict(acoustic_scale=0.325, blank_penalty=9.0, first_beam_size=8,
+         ctc_blank_skip_threshold=1.0, length_penalty=0.0, beam=0.0, sum_mode=False),
+]
+
+
+def noisy_logprobs(ids, seed, hot=4.0, noise=0.6, frames_per=3):
+    rng = np.random.default_rng(seed)
+    rows = []
+    for pid in ids:
+        for _ in range(frames_per):
+            row = np.full(41, -hot, np.float32)
+            row[pid] = 0.0
+            rows.append(row)
+        blank = np.full(41, -hot, np.float32)
+        blank[0] = 0.0
+        rows.append(blank)
+    lp = np.stack(rows) + noise * rng.standard_normal((len(rows), 41)).astype(np.float32)
+    return lp - np.log(np.exp(lp).sum(-1, keepdims=True))
+
+
+def batch_of(lps):
+    T = max(lp.shape[0] for lp in lps)
+    batch = np.full((len(lps), T, 41), -20.0, np.float32)
+    for i, lp in enumerate(lps):
+        batch[i, : lp.shape[0]] = lp
+    return batch, np.asarray([lp.shape[0] for lp in lps], np.int32)
+
+
+def real(results):
+    return [r for r in results if r.ac_score > lb.NEG / 2]
+
+
+def assert_same_nbest(got, want, tol=1e-4):
+    got, want = real(got), real(want)
+    assert want and [r.sentence for r in got] == [r.sentence for r in want]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose([a.ac_score, a.lm_score], [b.ac_score, b.lm_score],
+                                   rtol=tol, atol=tol)
+
+
+@pytest.fixture(scope="module")
+def world():
+    lexicon = Lexicon.from_words(LEX)
+    lps = [noisy_logprobs(lexicon.sentence_to_phonemes(s), seed=100 + i)
+           for i, s in enumerate(SENTENCES)]
+    return (lexicon, train_ngram(CORPUS, order=3), JaxLexicon.from_words(LEX),
+            jax_train_ngram(CORPUS, order=3), lps)
+
+
+@pytest.fixture(scope="module")
+def jax_searchers(world):
+    """JAX searchers by knob set, shared across the tests of this module."""
+    _, _, jlex, jlm, _ = world
+    cache = {}
+
+    def get(knobs, **kw):
+        key = (tuple(sorted(knobs.items())), tuple(sorted(kw.items())))
+        if key not in cache:
+            cache[key] = jlb.DeviceLexiconBeamSearch(
+                jlex, jlm, JaxDecodeConfig(nbest=10, beam_width=64, **knobs), **kw)
+        return cache[key]
+
+    return get
+
+
+@pytest.mark.parametrize("knobs", CONFIGS)
+def test_batched_knob_sweep_matches_jax(world, jax_searchers, knobs):
+    lexicon, lm, jlex, jlm, lps = world
+    batch, lens = batch_of(lps)
+    want = jax_searchers(knobs).decode_batch(batch, lens)
+    port = lb.DeviceLexiconBeamSearch(lexicon, lm, DecodeConfig(nbest=10, beam_width=64, **knobs),
+                                      device="cpu")
+    got = port.decode_batch(batch, lens)
+    for g, w in zip(got, want):
+        assert_same_nbest(g, w)
+    # the python oracle's top-1, at the JAX searcher's own oracle tolerance
+    # (tests/test_searcher_crosscheck.py:134-137)
+    for lp, g in zip(lps, got):
+        host = JaxOracle(jlex, jlm, JaxDecodeConfig(nbest=10, beam_width=64, **knobs))
+        host.decode(lp)
+        h = host.finish_decoding()[0]
+        assert g[0].sentence == h.sentence
+        np.testing.assert_allclose([g[0].ac_score, g[0].lm_score], [h.ac_score, h.lm_score],
+                                   rtol=1e-3, atol=1e-3)
+
+
+def test_host_helpers_equal_jax():
+    rng = np.random.default_rng(3)
+    lp = np.log(rng.dirichlet(np.ones(41) * 0.3, size=(3, 40))).astype(np.float32)
+    lp[:, ::3, 0] = -1e-4                                  # blank-dominated frames
+    lens = np.array([40, 25, 7], np.int32)
+    for thresh, bp in ((0.9, 1.0), (0.5, 2.0)):
+        got = lb.compact_blank_skip(lp, lens, 0, thresh, np.log(bp))
+        want = jlb.compact_blank_skip(lp, lens, 0, thresh, np.log(bp))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    traces = np.where(rng.random((30, 2, 5)) < 0.2, rng.integers(0, 9, (30, 2, 5)), -1)
+    for a, b in zip(lb._compress_traces(traces.astype(np.int32)),
+                    jlb._compress_traces(traces.astype(np.int32))):
+        np.testing.assert_array_equal(a, b)
+    parents = rng.integers(0, 5, (30, 2, 5))
+    np.testing.assert_array_equal(lb._backtrace_all(parents, traces),
+                                  jlb._backtrace_all(parents, traces))
+
+
+def test_searcher_wants_the_card(world, monkeypatch):
+    lexicon, lm, _, _, _ = world
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lb.DeviceLexiconBeamSearch(lexicon, lm, DecodeConfig())

@@ -2,9 +2,10 @@
 
 Keeps b2txt_tpu's module layout and names, so each module has a counterpart
 there. The GRU recurrence runs as hand-written CUDA kernels
-(``csrc/gru_fwd.cu`` forward, ``csrc/gru_bwd.cu`` backward) and the fused
-augmentation + smoothing as a Triton kernel (``ops/preprocess.py``); plain
-tensor code is ordinary PyTorch. Imports neither JAX nor b2txt_tpu.
+(``csrc/gru_fwd.cu`` forward, ``csrc/gru_bwd.cu`` backward), the fused
+augmentation + smoothing as one too (``csrc/preprocess.cu``), as does the
+row gather (``csrc/row_gather.cu``); plain tensor code is ordinary PyTorch.
+Imports neither JAX nor b2txt_tpu.
 
 Subpackages
 -----------

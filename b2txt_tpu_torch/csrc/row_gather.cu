@@ -9,84 +9,88 @@
 // What bounds it: bytes. Each gathered row is read once and written once,
 // plus the indices: g*rw*4 + g*rw*4 + g*4 bytes over 3.35 TB/s; there is no
 // arithmetic. The rows are random, so each one is its own few DRAM bursts and
-// latency has to be covered by many loads in flight.
+// latency has to be covered by many rows in flight.
 //
-// Design (simple and right first):
-// - Rows are rw int32 with rw % 4 == 0, copied as 16-byte vectors (int4).
-//   A warp walks the (row, vector) pairs of its rows in order, lane l taking
-//   every 32nd vector, so a 512 B row is exactly one warp-wide load and a
-//   256 B bucket row is half a warp.
-// - A block first loads its rows' indices into shared memory (the TPU
-//   kernel's scalar prefetch), then each warp copies its own rows.
-// - Each lane issues W independent 16-byte loads into registers before it
-//   stores any of them: W * 512 B in flight per warp, i.e. W rows of 512 B
-//   (the TPU ring's W DMAs) or 2W bucket rows of 256 B. W is a template
-//   parameter, 1, 8, 32 or 128 (the values the gather profile and the
-//   checks use); at 128 ptxas spills the register array to local memory,
-//   which the build report shows.
+// Design: the TPU's DMA ring moves into shared memory, filled and drained by
+// the tensor memory accelerator's 1-D bulk copies, so no row passes through
+// registers and W costs shared memory (W x row bytes), not registers.
+// - The grid does not follow W: rows are split evenly over max(number of
+//   SMs, ceil(g / W)) CTAs, at most g, so every SM works at every W and W
+//   bounds only what one CTA keeps in flight (at most W rows a CTA).
+// - A CTA first loads its rows' indices into shared memory (the TPU kernel's
+//   scalar prefetch), then keeps a ring of S = min(W, its rows) row slots.
+//   One thread owns each slot and its mbarrier, and walks rows s, s + S, ...:
+//   a bulk load `cp.async.bulk.shared::cluster.global.mbarrier::complete_tx`
+//   of the row into the slot, a wait on the slot's mbarrier, a bulk store
+//   `cp.async.bulk.global.shared::cta.bulk_group` of the slot to the output
+//   row, and `cp.async.bulk.wait_group.read` before the slot is refilled. One
+//   thread a slot, so the S copies are issued in parallel; the slots are
+//   dealt over up to 4 warps (slot s to lane s / warps of warp s % warps),
+//   which issue side by side: one warp issuing all of a CTA's slots was
+//   slower than `table[idx]` at W >= 32 on the H100.
 // - No bounds check inside the kernel, as in the TPU kernel. The caller's
-//   contract: 0 <= idx[i] < rows for every i; table, idx and out are
-//   contiguous, 16-byte aligned and on the current device.
-// cp.async or TMA rings that stage rows through shared memory are later work.
+//   contract: 0 <= idx[i] < rows for every i; rw % 4 == 0 (rows of a 16-byte
+//   multiple, which bulk copies need); table, idx and out contiguous, 16-byte
+//   aligned and on the current device; W x (row bytes + 12) within a CTA's
+//   shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int WARPS = 4;  // warps per block
+constexpr int MAX_SMEM = 232448;  // a CTA's shared memory on Hopper (227 KB)
 
-template <int W>
-__global__ void __launch_bounds__(WARPS * 32)
-row_gather_kernel(const int4* __restrict__ table, const int* __restrict__ idx,
-                  int4* __restrict__ out, long long g, int vpr, int rows_per_warp) {
-  extern __shared__ int s_idx[];  // this block's row indices
-  const int rows_per_block = rows_per_warp * WARPS;
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
-  const int n_rows = (int)min((long long)rows_per_block, g - r0);
-  for (int i = threadIdx.x; i < n_rows; i += blockDim.x) s_idx[i] = idx[r0 + i];
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr0 = warp * rows_per_warp;  // the warp's first row within the block
-  const int w_rows = max(0, min(rows_per_warp, n_rows - wr0));
-  const int n_vec = w_rows * vpr;        // 16-byte vectors this warp copies
-  for (int base = 0; base < n_vec; base += 32 * W) {
-    int4 v[W];
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      const int c = base + j * 32 + lane;
-      if (c < n_vec) {
-        const int r = c / vpr;
-        v[j] = __ldg(table + (size_t)s_idx[wr0 + r] * vpr + (c - r * vpr));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      const int c = base + j * 32 + lane;
-      if (c < n_vec) out[(size_t)(r0 + wr0) * vpr + c] = v[j];
-    }
-  }
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <int W>
-int launch(const void* table, const void* idx, void* out, long long g, int vpr,
-           cudaStream_t stream) {
-  // one pass of W loads per lane covers a warp's rows when a row is at most
-  // 32 vectors (512 B); longer rows take several passes
-  const int rows_per_warp = (32 * W >= vpr) ? (32 * W) / vpr : 1;
-  const int rows_per_block = rows_per_warp * WARPS;
-  const size_t smem = (size_t)rows_per_block * sizeof(int);
-  auto* kernel = row_gather_kernel<W>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long grid = (g + rows_per_block - 1) / rows_per_block;
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)grid, WARPS * 32, smem, stream>>>(
-      static_cast<const int4*>(table), static_cast<const int*>(idx),
-      static_cast<int4*>(out), g, vpr, rows_per_warp);
-  return (int)cudaGetLastError();
+__global__ void row_gather_kernel(const char* __restrict__ table, const int* __restrict__ idx,
+                                  char* __restrict__ out, long long g, int grid, int row_bytes,
+                                  int slots) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)slots * row_bytes);
+  int* s_idx = reinterpret_cast<int*>(bars + slots);
+  const long long r0 = (long long)blockIdx.x * g / grid;
+  const int n_rows = (int)((long long)(blockIdx.x + 1) * g / grid - r0);
+  const int s = (threadIdx.x & 31) * (blockDim.x / 32) + (threadIdx.x >> 5);  // slot
+
+  for (int i = threadIdx.x; i < n_rows; i += blockDim.x) s_idx[i] = idx[r0 + i];
+  if (s < slots) asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bars[s])));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+  if (s >= slots) return;
+
+  const unsigned slot = smem_addr(smem + (size_t)s * row_bytes), bar = smem_addr(&bars[s]);
+  uint32_t phase = 0;
+  for (int k = s; k < n_rows; k += slots, phase ^= 1) {
+    if (k != s) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(row_bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+            "r"(slot),
+        "l"(table + (size_t)s_idx[k] * row_bytes), "r"(row_bytes), "r"(bar)
+        : "memory");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+        "@!p bra WAIT;\n"
+        "}\n" ::"r"(bar),
+        "r"(phase)
+        : "memory");
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                     out + (size_t)(r0 + k) * row_bytes),
+                 "r"(slot), "r"(row_bytes)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace
@@ -94,21 +98,33 @@ int launch(const void* table, const void* idx, void* out, long long g, int vpr,
 extern "C" {
 
 // table (rows, rw) int32, idx (g,) int32, out (g, rw) int32; rw % 4 == 0;
-// in_flight: 16-byte loads each lane keeps in flight, 1, 8, 32 or 128.
+// in_flight: rows each CTA keeps in flight, 1, 8, 32 or 128.
 // Returns a cudaError_t (0 = launched).
-int b2t_row_gather(const void* table, const void* idx, void* out, int g, int rw,
-                   int in_flight, void* stream) {
+int b2t_row_gather(const void* table, const void* idx, void* out, int g, int rw, int in_flight,
+                   void* stream) {
   if (g < 0 || rw < 4 || rw % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (in_flight != 1 && in_flight != 8 && in_flight != 32 && in_flight != 128)
+    return (int)cudaErrorInvalidValue;
+  const long long row_bytes = 4LL * rw;
+  if ((long long)in_flight * (row_bytes + 12) > MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (g == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vpr = rw / 4;
-  switch (in_flight) {
-    case 1: return launch<1>(table, idx, out, g, vpr, s);
-    case 8: return launch<8>(table, idx, out, g, vpr, s);
-    case 32: return launch<32>(table, idx, out, g, vpr, s);
-    case 128: return launch<128>(table, idx, out, g, vpr, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long by_ring = ((long long)g + in_flight - 1) / in_flight;
+  const int grid = (int)std::min<long long>(g, std::max<long long>(n_sm, by_ring));
+  const int rows_max = (int)(((long long)g + grid - 1) / grid);  // rows of the largest CTA
+  const int slots = std::min(in_flight, rows_max);
+  const size_t smem = (size_t)slots * (row_bytes + 8) + (size_t)rows_max * 4;
+  err = cudaFuncSetAttribute(row_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 32 * std::min(4, slots);
+  row_gather_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const char*>(table), static_cast<const int*>(idx), static_cast<char*>(out), g,
+      grid, (int)row_bytes, slots);
+  return (int)cudaGetLastError();
 }
 
 const char* b2t_cuda_error_string(int err) {

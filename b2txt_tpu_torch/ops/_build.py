@@ -77,11 +77,13 @@ def build(source: str) -> Built:
     return Built(ctypes.CDLL(str(lib_path)), lib_path, seconds, report)
 
 
-def _declare(built: Built, fn_name: str, n_pointers: int, n_ints: int) -> Built:
-    """Declare ``fn_name(n_pointers pointers, n_ints ints, stream) -> int``
-    and the library's error-string function."""
+def _declare(built: Built, fn_name: str, n_pointers: int, n_ints: int,
+             n_floats: int = 0) -> Built:
+    """Declare ``fn_name(n_pointers pointers, n_ints ints, n_floats floats,
+    stream) -> int`` and the library's error-string function."""
     fn = getattr(built.lib, fn_name)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = built.lib.b2t_cuda_error_string
     err.argtypes = [ctypes.c_int]
@@ -105,3 +107,9 @@ def gru_bwd_library() -> Built:
 def row_gather_library() -> Built:
     """K4, ``csrc/row_gather.cu``, with its C signature declared."""
     return _declare(build("row_gather.cu"), "b2t_row_gather", 3, 3)
+
+
+@functools.lru_cache(maxsize=None)
+def preprocess_library() -> Built:
+    """K3, ``csrc/preprocess.cu``, with its C signature declared."""
+    return _declare(build("preprocess.cu"), "b2t_preprocess", 5, 10, 3)

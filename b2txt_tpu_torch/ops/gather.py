@@ -3,11 +3,12 @@ version.
 
 K4, ``csrc/row_gather.cu``, replaces the Pallas kernel ``make_dma_gather``
 (``scripts/profile_pallas_gather.py:47``): a ring of W single-row async
-copies in flight. On Hopper each warp copies whole rows with 16-byte vector
-loads, each lane keeping ``in_flight`` loads in flight before its stores,
-after its block has loaded its own indices. It is bound by bytes. Its path
-is the gather profile, ``b2txt_tpu_torch.scripts.profile_gather``, on the
-access pattern of the device beam search's n-gram and trie rows.
+copies in flight. On Hopper the ring lives in shared memory: each CTA loads
+its own indices, then keeps up to W rows in flight, each row one bulk copy of
+the tensor memory accelerator into its slot and one bulk store out of it; the
+grid spreads the rows over every SM whatever W is. It is bound by bytes. Its
+path is the gather profile, ``b2txt_tpu_torch.scripts.profile_gather``, on
+the access pattern of the device beam search's n-gram and trie rows.
 
 ``row_gather`` launches the kernel for CUDA tensors and takes the plain
 version, ``row_gather_reference``, only for CPU tensors.
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 IN_FLIGHT = (1, 8, 32, 128)
+SMEM_BYTES = 232448   # a CTA's shared memory on Hopper (227 KB): the ring's room
 
 
 def row_gather_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -41,6 +43,12 @@ def _check(table: torch.Tensor, idx: torch.Tensor, in_flight: int) -> None:
         raise ValueError(f"in_flight must be one of {IN_FLIGHT}, got {in_flight}")
     if idx.shape[0] >= 1 << 31:
         raise ValueError("at most 2^31 - 1 rows per call")
+    row_bytes = table.shape[1] * 4
+    if in_flight * (row_bytes + 12) > SMEM_BYTES:   # a slot, its mbarrier and its index
+        raise ValueError(f"in_flight={in_flight} rows of {row_bytes} B exceed a CTA's "
+                         f"{SMEM_BYTES} B of shared memory")
+    if table.data_ptr() % 16 or idx.data_ptr() % 16:
+        raise ValueError("table and idx must be 16-byte aligned (the kernel's bulk copies)")
 
 
 def row_gather(table: torch.Tensor, idx: torch.Tensor, in_flight: int = 8) -> torch.Tensor:
@@ -48,9 +56,10 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, in_flight: int = 8) -> to
     multiple of 4, and int32 indices (g,). Every index must lie in
     [0, rows): the kernel does not check them.
 
-    On CUDA tensors this launches K4, with ``in_flight`` 16-byte loads per
-    lane in flight (one of ``IN_FLIGHT``); ``row_gather.launches`` counts
-    launches. CPU tensors go to ``row_gather_reference``."""
+    On CUDA tensors this launches K4, each CTA keeping at most ``in_flight``
+    rows in flight (one of ``IN_FLIGHT``; ``in_flight`` rows must fit a CTA's
+    shared memory); ``row_gather.launches`` counts launches. CPU tensors go
+    to ``row_gather_reference``."""
     _check(table, idx, in_flight)
     if table.device.type == "cpu":
         return row_gather_reference(table, idx)
@@ -62,6 +71,8 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, in_flight: int = 8) -> to
     lib = row_gather_library().lib
     g, rw = idx.shape[0], table.shape[1]
     out = torch.empty((g, rw), dtype=torch.int32, device=table.device)
+    if out.data_ptr() % 16:
+        raise ValueError("the output must be 16-byte aligned (the kernel's bulk copies)")
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.b2t_row_gather(table.data_ptr(), idx.data_ptr(), out.data_ptr(),

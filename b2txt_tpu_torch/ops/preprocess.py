@@ -1,36 +1,35 @@
-"""Fused augmentation + smoothing: the Triton kernel K3 and its plain version.
+"""Fused augmentation + smoothing: the CUDA kernel K3 and its plain version.
 
 Counterpart of ``b2txt_tpu/ops/pallas/preprocess.py`` (``fused_preprocess``,
-:109, kernel body from ``_make_kernel``, :51, launched at :166). Per batch
-row the kernel adds white noise (T, C), a constant offset (1, C) and, if
-on, a random walk (cumsum along channels), then applies the truncated
-Gaussian smoothing with 'same' zero padding, in one read and one write of
-(B, T, C). The static gain (a per-row C×C product) and the random cut stay
-outside the kernel, in PyTorch, as in the JAX package (:130-145).
+:109, kernel body from ``_make_kernel``, :51, launched at :166). K3,
+``csrc/preprocess.cu``, takes each batch row's input rows after the random
+cut, adds white noise (T, C), a constant offset (1, C) and, if on, a random
+walk (cumsum along channels), then applies the truncated Gaussian smoothing
+with 'same' zero padding, in one read and one write of (B, T, C). The static
+gain (a per-row C×C product) stays outside the kernel, in PyTorch, as in the
+JAX package (:130-135); the cut is read by the kernel from the device
+integer drawn here, and the lengths are lowered in PyTorch.
 
 Two noise modes, as in the JAX kernel:
 
-- on-chip: normals from Philox (``tl.randn``) keyed by a seed and the
-  element's index; they are not the TPU's random bits, so the two agree in
-  distribution only;
+- on-chip: normals from a counter-based Philox4x32-10 inside K3, keyed by a
+  seed and each element's index. ``philox_noise`` computes the same normals
+  in PyTorch, so the plain version reproduces the kernel's output (not the
+  TPU's random bits: the two packages agree in distribution only);
 - passed in: a (B, 2T+1, C) tensor of standard normals, consumed in the
   JAX kernel's order (:156-164): white (T rows), offset (1 row), walk (T
   rows), each only if its std is > 0.
 
-What bounds K3 on the card: bytes. It does ~2·9 flops per element against
-8 bytes moved (or 16 with the noise passed in). Each program owns
-BLOCK_T output rows of one batch row and every channel; for each of the 9
-taps it reloads the shifted input rows (from L1/L2, not device memory) and
-regenerates their noise from the same Philox counters, so every element
-gets the same noise in every tap without a second pass.
+What bounds K3 on the card: bytes (8 per element, 16 with the normals passed
+in); its design is in the source's header.
 
 ``fused_preprocess`` launches K3 for CUDA tensors and takes the plain
-version for CPU tensors, with normals drawn on the host (the JAX package's
-interpret path does the same).
+version for CPU tensors, with the same Philox normals.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -38,8 +37,6 @@ import torch
 
 from .augment import TransformArgs, apply_gain, shift_left_and_zero
 from .smoothing import gauss_smooth, gaussian_kernel
-
-BLOCK_T = 8
 
 
 def noise_rows(args: TransformArgs, T: int) -> Tuple[int, int, int]:
@@ -96,115 +93,116 @@ def fused_preprocess_reference(
     return preprocess_body_reference(features, args, training, noise), n_time_steps
 
 
-# The kernel's source. Triton reads these functions' text and compiles them
-# when ``_kernel()`` wraps them with ``triton.jit`` at the first launch;
-# ``tl`` and ``_noisy_rows`` are module globals bound at that moment, so the
-# module imports where triton is not installed.
-def _noisy_rows_src(x_ptr, noise_ptr, b, rows, c, T, C, NR, seed,
-                    row_white, row_offset, row_walk, base_offset, base_walk,
-                    white_std, offset_std, walk_std,
-                    HAS_WHITE: tl.constexpr, HAS_OFFSET: tl.constexpr,
-                    HAS_WALK: tl.constexpr, ON_CHIP: tl.constexpr):
-    """Input rows ``rows`` ([BT, 1]) of batch row b with their noise added;
-    zero outside 0 <= row < T (the smoothing's 'same' padding)."""
-    m = (rows >= 0) & (rows < T) & (c < C)
-    x = tl.load(x_ptr + (b * T + rows) * C + c, mask=m, other=0.0)
-    if HAS_WHITE:
-        if ON_CHIP:
-            n = tl.randn(seed, (b * T + rows) * C + c)
-        else:
-            n = tl.load(noise_ptr + (b * NR + row_white + rows) * C + c, mask=m, other=0.0)
-        x = x + white_std * n
-    if HAS_OFFSET:
-        if ON_CHIP:
-            n1 = tl.randn(seed, base_offset + b * C + c)
-        else:
-            n1 = tl.load(noise_ptr + (b * NR + row_offset) * C + c, mask=c < C, other=0.0)
-        x = x + offset_std * n1
-    if HAS_WALK:
-        if ON_CHIP:
-            n2 = tl.randn(seed, base_walk + (b * T + rows) * C + c)
-        else:
-            n2 = tl.load(noise_ptr + (b * NR + row_walk + rows) * C + c, mask=m, other=0.0)
-        x = x + tl.cumsum(tl.where(c < C, walk_std * n2, 0.0), axis=1)
-    return tl.where(m, x, 0.0)
+# Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+# 3", SC 2011), the generator K3 runs; its constants are Random123's.
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+TWO_PI_F32 = 6.2831855       # 2π rounded to float32, as the kernel's 6.2831855f
+STREAMS = {"white": 0, "offset": 1, "walk": 2}
+MAX_TAPS = 16                # the kernel's limits
+MAX_WALK_CHANNELS = 1024
 
 
-def _preprocess_kernel_src(x_ptr, noise_ptr, out_ptr, kern_ptr, seed, T, C, NR,
-                           row_white, row_offset, row_walk, base_offset, base_walk,
-                           white_std, offset_std, walk_std,
-                           HAS_WHITE: tl.constexpr, HAS_OFFSET: tl.constexpr,
-                           HAS_WALK: tl.constexpr, ON_CHIP: tl.constexpr,
-                           SMOOTH: tl.constexpr, K: tl.constexpr,
-                           BLOCK_T: tl.constexpr, BLOCK_C: tl.constexpr):
-    """Program (b, i): output rows [i*BLOCK_T, i*BLOCK_T + BLOCK_T) of batch
-    row b, every channel. The taps are summed in the plain version's order
-    (tap 1, then tap 0 fused onto it, then taps 2.. K-1), each a fused
-    multiply-add."""
-    b = tl.program_id(0)
-    t = tl.program_id(1) * BLOCK_T + tl.arange(0, BLOCK_T)[:, None]
-    c = tl.arange(0, BLOCK_C)[None, :]
-    if SMOOTH and K > 1:
-        acc = tl.load(kern_ptr + 1) * _noisy_rows(
-            x_ptr, noise_ptr, b, t + 1 - K // 2, c, T, C, NR, seed, row_white, row_offset,
-            row_walk, base_offset, base_walk, white_std, offset_std, walk_std,
-            HAS_WHITE, HAS_OFFSET, HAS_WALK, ON_CHIP)
-        acc = tl.fma(tl.load(kern_ptr), _noisy_rows(
-            x_ptr, noise_ptr, b, t - K // 2, c, T, C, NR, seed, row_white, row_offset,
-            row_walk, base_offset, base_walk, white_std, offset_std, walk_std,
-            HAS_WHITE, HAS_OFFSET, HAS_WALK, ON_CHIP), acc)
-        for k in tl.static_range(2, K):
-            acc = tl.fma(tl.load(kern_ptr + k), _noisy_rows(
-                x_ptr, noise_ptr, b, t + k - K // 2, c, T, C, NR, seed, row_white,
-                row_offset, row_walk, base_offset, base_walk, white_std, offset_std,
-                walk_std, HAS_WHITE, HAS_OFFSET, HAS_WALK, ON_CHIP), acc)
-    else:
-        acc = _noisy_rows(
-            x_ptr, noise_ptr, b, t, c, T, C, NR, seed, row_white, row_offset, row_walk,
-            base_offset, base_walk, white_std, offset_std, walk_std,
-            HAS_WHITE, HAS_OFFSET, HAS_WALK, ON_CHIP)
-        if SMOOTH:
-            acc = tl.load(kern_ptr) * acc
-    tl.store(out_ptr + (b * T + t) * C + c, acc, mask=(t < T) & (c < C))
+def _mulhilo(m: int, a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """High and low 32 bits of m·a for 32-bit m and a (int64 tensors), with
+    a split into 16-bit halves so that no product leaves int64."""
+    p_lo, p_hi = m * (a & 0xFFFF), m * (a >> 16)
+    return (p_hi + (p_lo >> 16)) >> 16, (p_lo + ((p_hi & 0xFFFF) << 16)) & _MASK32
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """K3 as a ``triton.jit`` kernel, compiled by Triton at its first launch."""
-    import triton
-    import triton.language
+def philox4x32_10(counter: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Philox4x32-10 of ``counter`` (..., 4) under ``key`` (..., 2), both
+    int64 tensors of 32-bit words; returns (..., 4) int64 words."""
+    c0, c1, c2, c3 = counter.unbind(-1)
+    k0, k1 = key.unbind(-1)
+    for i in range(10):
+        if i:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack([c0, c1, c2, c3], dim=-1)
 
-    globals()["tl"] = triton.language
-    globals()["_noisy_rows"] = triton.jit(_noisy_rows_src)
-    return triton.jit(_preprocess_kernel_src)
+
+def _stream_normals(seed: int, stream: int, n: int, device) -> torch.Tensor:
+    """Normals of elements 0 .. n-1 of a stream, as K3 draws them: element e
+    is word e & 3 of counter (j mod 2^32, j >> 32, stream, 0), j = e >> 2,
+    key (seed, 0); Box-Muller on the word pairs (0, 1) and (2, 3) in float32."""
+    j = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    counter = torch.stack([j & _MASK32, j >> 32, torch.full_like(j, stream),
+                           torch.zeros_like(j)], dim=-1)
+    key = torch.tensor([seed & _MASK32, 0], dtype=torch.int64, device=device)
+    w = philox4x32_10(counter, key.expand(j.shape[0], 2))
+    u = ((w >> 9) * 2 + 1).to(torch.float32) * 2.0**-24   # odd multiples of 2^-24: exact
+    r = torch.sqrt(-2.0 * torch.log(u[:, 0::2]))
+    theta = u[:, 1::2] * TWO_PI_F32
+    normals = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+    return normals.reshape(-1)[:n]   # words 0, 1, 2, 3 of each counter in order
 
 
-def _launch(x: torch.Tensor, args: TransformArgs, training: bool, seed: int,
-            noise: Optional[torch.Tensor]) -> torch.Tensor:
-    """K3 on a contiguous (B, T, C) float32 CUDA tensor."""
-    import triton
+def philox_noise(seed: int, B: int, T: int, C: int, args: TransformArgs,
+                 device="cpu") -> torch.Tensor:
+    """The normals K3 draws on the card for ``seed``, in the (B, 2T+1, C)
+    layout of ``noise_rows`` (rows of disabled draws stay 0): white element
+    (b·T + t)·C + c of stream 0, offset b·C + c of stream 1, walk (b·T + t)·C
+    + c of stream 2, t the row after the cut."""
+    noise = torch.zeros((B, 2 * T + 1, C), dtype=torch.float32, device=device)
+    rw, ro, rk = noise_rows(args, T)
+    if args.white_noise_std > 0:
+        noise[:, rw : rw + T] = _stream_normals(seed, STREAMS["white"], B * T * C,
+                                                device).view(B, T, C)
+    if args.constant_offset_std > 0:
+        noise[:, ro] = _stream_normals(seed, STREAMS["offset"], B * C, device).view(B, C)
+    if args.random_walk_std > 0:
+        noise[:, rk : rk + T] = _stream_normals(seed, STREAMS["walk"], B * T * C,
+                                                device).view(B, T, C)
+    return noise
+
+
+@functools.lru_cache(maxsize=16)
+def _taps(args: TransformArgs) -> Tuple[int, ctypes.Array]:
+    """The smoothing taps as a host float array (one tap of 1.0 with the
+    smoothing off); K3 takes them by value."""
+    taps = (gaussian_kernel(args.smooth_kernel_std, args.smooth_kernel_size)
+            if args.smooth_data else (1.0,))
+    if len(taps) > MAX_TAPS:
+        raise ValueError(f"fused_preprocess takes at most {MAX_TAPS} smoothing taps, "
+                         f"got {len(taps)} (smooth_kernel_std={args.smooth_kernel_std})")
+    return len(taps), (ctypes.c_float * len(taps))(*taps)
+
+
+def launch_preprocess(x: torch.Tensor, args: TransformArgs, training: bool, seed: int,
+                      noise: Optional[torch.Tensor], cut: Optional[torch.Tensor]) -> torch.Tensor:
+    """K3 on a contiguous (B, T, C) float32 CUDA tensor, the gain applied;
+    ``cut`` a 0-d int64 tensor on x's device or None; ``noise`` (B, 2T+1, C)
+    float32 contiguous or None (Philox normals keyed by ``seed``)."""
+    from ._build import preprocess_library
 
     B, T, C = x.shape
-    if 2 * B * T * C + B * C >= 2**31:
-        raise ValueError(f"fused_preprocess: (B, T, C)={B, T, C} overflows the 32-bit counters")
-    kern = torch.tensor(gaussian_kernel(args.smooth_kernel_std, args.smooth_kernel_size),
-                        dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
     noisy = _needs_noise(args, training)
+    flags = ((1 if noisy and args.white_noise_std > 0 else 0)
+             | (2 if noisy and args.constant_offset_std > 0 else 0)
+             | (4 if noisy and args.random_walk_std > 0 else 0)
+             | (8 if noise is not None else 0))
+    if flags & 4 and C > MAX_WALK_CHANNELS:
+        raise ValueError(f"fused_preprocess takes the random walk over at most "
+                         f"{MAX_WALK_CHANNELS} channels, got C={C}")
+    K, taps = _taps(args)
     rw, ro, rk = noise_rows(args, T)
-    grid = (B, triton.cdiv(T, BLOCK_T))
-    _kernel()[grid](
-        x, noise if noise is not None else x, out, kern, seed, T, C,
-        noise.shape[1] if noise is not None else 0, rw, ro, rk, B * T * C, B * T * C + B * C,
-        float(args.white_noise_std), float(args.constant_offset_std),
-        float(args.random_walk_std),
-        HAS_WHITE=noisy and args.white_noise_std > 0,
-        HAS_OFFSET=noisy and args.constant_offset_std > 0,
-        HAS_WALK=noisy and args.random_walk_std > 0,
-        ON_CHIP=noise is None, SMOOTH=bool(args.smooth_data),
-        K=int(kern.numel()) if args.smooth_data else 1,
-        BLOCK_T=BLOCK_T, BLOCK_C=triton.next_power_of_2(C), num_warps=4,
-    )
+    out = torch.empty_like(x)
+    lib = preprocess_library().lib
+    with torch.cuda.device(x.device):
+        err = lib.b2t_preprocess(
+            x.data_ptr(), noise.data_ptr() if noise is not None else None,
+            cut.data_ptr() if cut is not None else None, out.data_ptr(), taps,
+            B, T, C, 2 * T + 1, rw, ro, rk, flags, K, seed,
+            float(args.white_noise_std), float(args.constant_offset_std),
+            float(args.random_walk_std), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.b2t_cuda_error_string(err).decode()
+        raise RuntimeError(f"fused_preprocess (B, T, C)={B, T, C} kernel launch failed: "
+                           f"cudaError {err}: {msg}")
     return out
 
 
@@ -220,10 +218,10 @@ def fused_preprocess(
     """Fused replacement for ``ops.augment.transform_data``.
 
     Gain normals and the cut are drawn from ``generator`` (on features'
-    device). On CUDA tensors the noise comes from Philox inside K3, keyed by
-    ``seed``, unless ``noise`` (B, 2T+1, C) is given; ``fused_preprocess.
-    launches`` counts K3 launches. On CPU tensors the normals come from
-    ``generator`` (or ``noise``) and the plain version runs.
+    device). The noise is ``noise`` (B, 2T+1, C) if given, else the Philox
+    normals keyed by ``seed`` (inside K3 on the card, ``philox_noise`` on the
+    CPU, the same numbers). CUDA tensors launch K3 (``fused_preprocess.
+    launches`` counts them); CPU tensors take the plain version.
     """
     if features.dim() != 3:
         raise ValueError(f"features must be (B, T, C), got {tuple(features.shape)}")
@@ -231,6 +229,7 @@ def fused_preprocess(
         raise ValueError("fused_preprocess takes the random walk along channels only")
     B, T, C = features.shape
     dev = features.device
+    seed = int(seed) & 0x7FFFFFFF
     gain = cut = None
     if training and args.static_gain_std > 0:
         gain = torch.randn((B, C, C), generator=generator, device=dev)
@@ -238,7 +237,7 @@ def fused_preprocess(
         cut = torch.randint(0, args.random_cut, (), generator=generator, device=dev)
     if dev.type == "cpu":
         if noise is None and _needs_noise(args, training):
-            noise = torch.randn((B, 2 * T + 1, C), generator=generator)
+            noise = philox_noise(seed, B, T, C, args)
         return fused_preprocess_reference(features, n_time_steps, args, training,
                                           noise, cut, gain)
     if dev.type != "cuda":
@@ -249,12 +248,11 @@ def fused_preprocess(
     x = features.float()
     if gain is not None:
         x = apply_gain(x, gain, args.static_gain_std)
-    if cut is not None:
-        x = shift_left_and_zero(x, cut)
-        n_time_steps = n_time_steps - cut
-    out = _launch(x.contiguous(), args, training, int(seed) & 0x7FFFFFFF,
-                  noise.float().contiguous() if noise is not None else None)
+    out = launch_preprocess(x.contiguous(), args, training, seed,
+                            noise.float().contiguous() if noise is not None else None, cut)
     fused_preprocess.launches += 1
+    if cut is not None:
+        n_time_steps = n_time_steps - cut
     return out, n_time_steps
 
 

@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds every kernel of the serving and training paths from
-``b2txt_tpu_torch`` (the CUDA sources with nvcc, all at once; the Triton
-kernel at its first launch), holds each kernel against its plain PyTorch
+``b2txt_tpu_torch`` (the four CUDA sources, one nvcc each, all at once),
+holds each kernel against its plain PyTorch
 version on the card (and, for the GRU recurrence, measures how far two
 correct versions drift apart by weight scale, against a float64 version),
 then:
@@ -59,6 +59,11 @@ GRU_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # in the same order, so rounding only; the random walk's cumsum along 512
 # channels sums in another order (a parallel scan), so it gets more room.
 PREPROCESS_TOL = {"noise": 1e-5, "walk": 1e-4}
+# K3 with its own Philox noise against the plain version fed philox_noise:
+# the same counters and uniforms, but the kernel's logf/sincosf and PyTorch's
+# float32 log/cos/sin differ by a few ulps on normals of size <= ~6, and the
+# walk's cumsum sums in another order.
+PREPROCESS_PHILOX_TOL = {"noise": 1e-5, "walk": 1e-4}
 # The training step's parameter gradients, kernel path against plain path:
 # ||g - g_plain|| / ||g_plain|| for each parameter. f32: summation order
 # through 5 layers and 125 steps. bf16: the forward's h_t rounds to bf16 in
@@ -94,6 +99,7 @@ CONNECTED_DECODE = dict(acoustic_scale=0.325, blank_penalty=90.0, nbest=100, bea
 # one ulp per frame over 125 frames of scores near 100 sums to ~1e-4
 SEARCH_TOL = 1e-4        # relative and absolute, as np.allclose
 GATHER_GRID = [(rw, g) for rw in (4, 64, 128) for g in (1, 37, 4096)]
+GATHER_IN_FLIGHT = [1, 8, 32, 128]
 
 
 def emit(obj) -> None:
@@ -132,11 +138,11 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from b2txt_tpu_torch.ops._build import (gru_bwd_library, gru_fwd_library,
-                                            row_gather_library)
+                                            preprocess_library, row_gather_library)
 
     t0 = time.perf_counter()
     libs = {"gru_fwd.cu": gru_fwd_library, "gru_bwd.cu": gru_bwd_library,
-            "row_gather.cu": row_gather_library}
+            "row_gather.cu": row_gather_library, "preprocess.cu": preprocess_library}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(fn) for name, fn in libs.items()}
         built = {name: f.result() for name, f in futures.items()}
@@ -377,31 +383,40 @@ def fused_against_plain(x, nt, args, training: bool, gen) -> float:
     seeds = [torch.Generator(device="cuda").manual_seed(7) for _ in range(2)]
     got, nt_got = fused_preprocess(x, nt, args, training, generator=seeds[0], noise=noise)
     torch.cuda.synchronize()
+    # the wrapper's draws, in its order: gain normals, then the cut
+    gain = (torch.randn((B, C, C), generator=seeds[1], device="cuda")
+            if training and args.static_gain_std > 0 else None)
     cut = (torch.randint(0, args.random_cut, (), generator=seeds[1], device="cuda")
            if training else 0)
-    ref, nt_ref = fused_preprocess_reference(x, nt, args, training, noise, cut)
+    ref, nt_ref = fused_preprocess_reference(x, nt, args, training, noise, cut, gain)
     if not (bool(torch.isfinite(got).all()) and torch.equal(nt_got, nt_ref)):
         return float("inf")
     return float((got - ref).abs().max())
 
 
 def phase_kernel_fused_preprocess(B: int, T: int, C: int):
-    """K3 against its plain version on the same normals (train and eval),
-    and its on-chip noise by statistics. Returns the figures of the default
-    training knobs in the on-chip mode."""
+    """K3 against its plain version: with the normals passed in (train,
+    eval, walk, gain), and with its own Philox noise elementwise against
+    the plain version fed ``philox_noise`` and the same cut; its on-chip
+    noise by statistics. Times the kernel alone, the whole
+    ``fused_preprocess`` call and the unfused ``transform_data`` at the
+    default training knobs. Returns the figures."""
     import torch
 
-    from b2txt_tpu_torch.ops.augment import TransformArgs
-    from b2txt_tpu_torch.ops.preprocess import fused_preprocess, fused_preprocess_reference
+    from b2txt_tpu_torch.ops.augment import TransformArgs, transform_data
+    from b2txt_tpu_torch.ops.preprocess import (fused_preprocess, fused_preprocess_reference,
+                                                launch_preprocess, philox_noise)
     from b2txt_tpu_torch.utils.config import DataTransforms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     x = torch.randn((B, T, C), generator=gen, device="cuda")
     nt = torch.full((B,), T, dtype=torch.long, device="cuda")
     defaults = TransformArgs.from_config(DataTransforms())
+    walk = defaults._replace(random_walk_std=0.1)
     worst = 0.0
     cases = [("train", defaults, True, "noise"), ("eval", defaults, False, "noise"),
-             ("train_walk", defaults._replace(random_walk_std=0.1), True, "walk")]
+             ("train_walk", walk, True, "walk"),
+             ("train_gain", defaults._replace(static_gain_std=0.05), True, "noise")]
     for label, args, training, tol_kind in cases:
         err = fused_against_plain(x, nt, args, training, gen)
         tol = PREPROCESS_TOL[tol_kind]
@@ -411,6 +426,26 @@ def phase_kernel_fused_preprocess(B: int, T: int, C: int):
         if not ok:
             raise RuntimeError(f"fused_preprocess ({label}) disagrees with its plain version")
         worst = max(worst, err)
+
+    # on-chip Philox noise, elementwise against the plain version fed the
+    # same normals (philox_noise) and the same cut, read by the kernel from
+    # a device integer
+    for label, args, tol_kind in (("train", defaults, "noise"), ("train_walk", walk, "walk")):
+        for cut in (0, 2):
+            seed = 100 + cut
+            got = launch_preprocess(x, args, True, seed, None, torch.tensor(cut, device="cuda"))
+            torch.cuda.synchronize()
+            want, _ = fused_preprocess_reference(
+                x, nt, args, True, philox_noise(seed, B, T, C, args, device="cuda"), cut)
+            err = float((got - want).abs().max()) if bool(torch.isfinite(got).all()) else float("inf")
+            tol = PREPROCESS_PHILOX_TOL[tol_kind]
+            emit({"phase": "kernel_fused_preprocess", "mode": f"on-chip noise vs philox_noise, {label}",
+                  "cut": cut, "B": B, "T": T, "C": C, "max_abs_err": err, "tol": tol,
+                  "ok": err <= tol})
+            if not err <= tol:
+                raise RuntimeError(f"fused_preprocess on-chip noise ({label}, cut {cut}) "
+                                   f"disagrees with philox_noise")
+            worst = max(worst, err)
 
     # on-chip Philox noise, held by its statistics
     zeros = torch.zeros((B, T, C), device="cuda")
@@ -436,13 +471,22 @@ def phase_kernel_fused_preprocess(B: int, T: int, C: int):
     if not all(checks):
         raise RuntimeError(f"fused_preprocess on-chip noise statistics are off: {stats}")
 
-    ms = cuda_ms(lambda: fused_preprocess(x, nt, defaults, True, generator=gen, seed=4), iters=20)
+    cut = torch.tensor(1, device="cuda")
+    ms = cuda_ms(lambda: launch_preprocess(x, defaults, True, 4, None, cut), iters=20)
+    # what the noise costs: the same launch without it (eval), and with the walk
+    eval_ms = cuda_ms(lambda: launch_preprocess(x, defaults, False, 4, None, None), iters=20)
+    walk_ms = cuda_ms(lambda: launch_preprocess(x, walk, True, 4, None, cut), iters=20)
+    call_ms = cuda_ms(lambda: fused_preprocess(x, nt, defaults, True, generator=gen, seed=4),
+                      iters=20)
+    transform_ms = cuda_ms(lambda: transform_data(x, nt, defaults, True, generator=gen), iters=20)
     host_noise = torch.randn((B, 2 * T + 1, C), generator=gen, device="cuda")
     plain_ms = cuda_ms(lambda: fused_preprocess_reference(x, nt, defaults, True, host_noise, 1),
                        iters=5)
     nbytes = 2 * 4 * B * T * C   # one read and one write of (B, T, C) f32
     fig = {"phase": "kernel_fused_preprocess", "mode": "timing, on-chip noise, TrainConfig knobs",
-           "B": B, "T": T, "C": C, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+           "B": B, "T": T, "C": C, "max_abs_err": worst, "ms": ms, "call_ms": call_ms,
+           "eval_ms": eval_ms, "walk_ms": walk_ms, "transform_data_ms": transform_ms,
+           "plain_ms": plain_ms,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None}
     emit(fig)
     return fig
@@ -973,7 +1017,7 @@ def phase_kernel_row_gather(bucket_table):
                               device="cuda", dtype=torch.int32)
         idx = torch.randint(0, 1 << 14, (g,), generator=gen, device="cuda", dtype=torch.int32)
         idx[: g // 2] = idx[0]
-        for w in (1, 8, 128):
+        for w in GATHER_IN_FLIGHT:
             grid_ok &= torch.equal(row_gather(table, idx, in_flight=w),
                                    row_gather_reference(table, idx))
     row_gather.launches = 0
@@ -982,7 +1026,7 @@ def phase_kernel_row_gather(bucket_table):
     bidx = torch.randint(0, bucket_table.shape[0], (4096,), generator=gen, device="cuda",
                          dtype=torch.int32)
     bucket = [gather_entry(bench_gather(bucket_table, bidx, w)) for w in (1, 8, 32)]
-    fig = {"phase": "kernel_row_gather", "grid": GATHER_GRID, "grid_in_flight": [1, 8, 128],
+    fig = {"phase": "kernel_row_gather", "grid": GATHER_GRID, "grid_in_flight": GATHER_IN_FLIGHT,
            "grid_bit_exact": bool(grid_ok), "profile_gather": profile,
            "launches": launches, "main": gather_entry(profile[0]),
            "decode_lm_bucket_table": bucket}
@@ -1099,7 +1143,7 @@ def main() -> int:
                      runs["transform_data"]["launches"]["gru_bwd"],
                      f"train run: {TRAIN_STEPS} steps", k_bwd,
                      ("B", "T", "H", "dtype", "weights")),
-        kernel_entry("fused_preprocess", "triton", "b2txt_tpu_torch/ops/preprocess.py",
+        kernel_entry("fused_preprocess", "cuda", "b2txt_tpu_torch/csrc/preprocess.cu",
                      "b2txt_tpu/ops/pallas/preprocess.py:51",
                      runs["fused_preprocess"]["launches"]["fused_preprocess"],
                      f"fused train run: {FUSED_STEPS} steps", pre_fig,

@@ -43,3 +43,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         gather.row_gather(torch.zeros((8, 16), dtype=torch.int32).t(), idx)
     with pytest.raises(ValueError, match="in_flight"):
         gather.row_gather(table, idx, in_flight=3)
+
+
+def test_wrapper_rejects_misaligned_tensors_and_oversized_rings():
+    """The kernel's bulk copies need 16-byte aligned tensors, and W rows of
+    the table must fit a CTA's shared memory."""
+    flat = torch.zeros(16 * 8 + 4, dtype=torch.int32)
+    shifted = flat[1 : 1 + 16 * 8].view(16, 8)      # offset by one int32: 4 bytes
+    idx = torch.zeros((3,), dtype=torch.int32)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="aligned"):
+        gather.row_gather(shifted, idx)
+    with pytest.raises(ValueError, match="aligned"):
+        gather.row_gather(flat[:16].view(2, 8), torch.zeros(5, dtype=torch.int32)[1:])
+    wide = torch.zeros((4, 512), dtype=torch.int32)    # 2 KB rows
+    with pytest.raises(ValueError, match="shared memory"):
+        gather.row_gather(wide, idx, in_flight=128)
+    assert torch.equal(gather.row_gather(wide, idx, in_flight=32), wide[:3])

@@ -18,7 +18,7 @@ _CHILD = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["b2txt_tpu"] = None
-sys.modules["triton"] = None       # triton and h5py load only inside functions
+sys.modules["triton"] = None       # no module imports triton; h5py loads only inside functions
 sys.modules["h5py"] = None
 import b2txt_tpu_torch
 names = ["b2txt_tpu_torch"] + [

@@ -128,6 +128,99 @@ def test_fused_preprocess_kernel_matches_plain(label, kw, training, tol):
     assert (got - want).abs().max().item() <= tol
 
 
+def _onchip_against_philox(B, T, C, kw, cut, seed=5, tol=None):
+    """K3 with its own Philox noise (the cut read from a device integer)
+    against the plain version fed ``philox_noise(seed, ...)`` and the same
+    cut: max |difference|, with chip_smoke.py's tolerances (1e-5, 1e-4 with
+    the walk: logf/sincosf against PyTorch's float32 functions, a few ulps on
+    normals of size <= ~6)."""
+    args = TransformArgs(**kw)
+    gen = torch.Generator(device="cuda").manual_seed(B * 100 + C)
+    x = torch.randn((B, T, C), generator=gen, device="cuda")
+    got = port_pre.launch_preprocess(x, args, True, seed, None,
+                                     torch.tensor(cut, device="cuda"))
+    torch.cuda.synchronize()
+    noise = port_pre.philox_noise(seed, B, T, C, args, device="cuda")
+    want, _ = port_pre.fused_preprocess_reference(x, torch.full((B,), T, device="cuda"), args,
+                                                  True, noise, cut)
+    tol = tol if tol is not None else (1e-4 if args.random_walk_std > 0 else 1e-5)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cut", [0, 1, 2])
+@pytest.mark.parametrize("kw", [{}, {"random_walk_std": 0.1}], ids=["defaults", "walk"])
+def test_fused_preprocess_on_chip_noise_matches_philox_plain(kw, cut):
+    _need_card()
+    _onchip_against_philox(4, 130, 512, kw, cut)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,C,kw", [
+    (1, 57, 13, {}), (3, 130, 96, {}), (3, 130, 96, {"random_walk_std": 0.1}),
+    (2, 70, 1024, {"random_walk_std": 0.1}), (1, 57, 13, {"random_walk_std": 0.1}),
+    (2, 9, 300, {}), (1, 40, 8, {"smooth_kernel_std": 3.0}),
+])
+def test_fused_preprocess_ragged_shapes(B, T, C, kw):
+    """T not a multiple of the kernel's chunk, C not a multiple of 4 or of
+    its 128-channel slab, B = 1, K = 13 taps: on-chip noise against
+    philox_noise, and the noise passed in against the plain version."""
+    _need_card()
+    _onchip_against_philox(B, T, C, kw, cut=2)
+    args = TransformArgs(**kw)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((B, T, C), generator=gen, device="cuda")
+    noise = torch.randn((B, 2 * T + 1, C), generator=gen, device="cuda")
+    nt = torch.full((B,), T, device="cuda")
+    g1, g2 = (torch.Generator(device="cuda").manual_seed(9) for _ in range(2))
+    got, _ = port_pre.fused_preprocess(x, nt, args, True, generator=g1, noise=noise)
+    cut = torch.randint(0, args.random_cut, (), generator=g2, device="cuda")
+    want, _ = port_pre.fused_preprocess_reference(x, nt, args, True, noise, cut)
+    tol = 1e-4 if args.random_walk_std > 0 else 1e-5
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_fused_preprocess_walk_over_1024_channels_raises():
+    _need_card()
+    x = torch.zeros((1, 8, 1028), device="cuda")
+    with pytest.raises(ValueError, match="1024 channels"):
+        port_pre.fused_preprocess(x, torch.full((1,), 8, device="cuda"),
+                                  TransformArgs(random_walk_std=0.1), True)
+
+
+@pytest.mark.gpu
+def test_fused_preprocess_card_equals_cpu_for_one_seed():
+    """The same seed gives the same output on the card (Philox in K3) and
+    on the CPU (philox_noise in the plain version); random_cut=1 draws cut
+    0 on both devices."""
+    _need_card()
+    B, T, C = 3, 130, 96
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((B, T, C)).astype(np.float32))
+    nt = torch.full((B,), T)
+    args = TransformArgs(random_cut=1, random_walk_std=0.1)
+    cpu, nt_cpu = port_pre.fused_preprocess(x, nt, args, True, seed=21)
+    card, nt_card = port_pre.fused_preprocess(x.cuda(), nt.cuda(), args, True, seed=21)
+    assert torch.equal(nt_card.cpu(), nt_cpu)
+    assert (card.cpu() - cpu).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source", ["preprocess.cu", "row_gather.cu"])
+def test_kernel_builds_without_spills(source):
+    """ptxas reports 0 spill bytes for every kernel of K3 and K4."""
+    import re
+
+    from b2txt_tpu_torch.ops import _build
+
+    _need_card()
+    report = {"preprocess.cu": _build.preprocess_library,
+              "row_gather.cu": _build.row_gather_library}[source]().ptxas_report
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
+    assert spills and not any(spills), report
+
+
 @pytest.mark.gpu
 def test_fused_preprocess_on_chip_noise_statistics():
     """Philox normals inside K3: white noise standard and independent
@@ -186,7 +279,7 @@ def test_decoder_gradients_on_card_match_plain_path(dtype, tol):
 @pytest.mark.gpu
 @pytest.mark.parametrize("rw", [4, 64, 128])
 @pytest.mark.parametrize("g", [1, 37, 4096])
-@pytest.mark.parametrize("in_flight", [1, 8, 128])
+@pytest.mark.parametrize("in_flight", [1, 8, 32, 128])
 def test_row_gather_kernel_matches_plain_bit_for_bit(rw, g, in_flight):
     from b2txt_tpu_torch.ops import gather as port_gather
 

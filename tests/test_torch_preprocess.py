@@ -1,7 +1,8 @@
 """The port's augmentations (``ops/augment.py``) and K3's plain version
 (``ops/preprocess.py``) against the JAX package, with the JAX package's own
-random draws handed to the port. The Triton kernel is held against the plain
-version in test_torch_kernels_gpu.py."""
+random draws handed to the port. The CUDA kernel is held against the plain
+version in test_torch_kernels_gpu.py, its Philox generator in
+test_torch_philox.py."""
 
 import numpy as np
 import pytest
@@ -121,13 +122,17 @@ def test_noise_layout_follows_enabled_draws():
 
 
 def test_cpu_tensors_take_plain_version_without_launch(rng, monkeypatch):
+    """On the CPU, ``fused_preprocess(noise=None, seed=s)`` is the plain
+    version fed the kernel's own Philox normals (``philox_noise(s, ...)``)
+    and the cut drawn from the same generator; nothing is launched."""
     monkeypatch.setattr(port_pre.fused_preprocess, "launches", 0)
     x, nt = _inputs(rng)
     g1, g2 = torch.Generator().manual_seed(4), torch.Generator().manual_seed(4)
-    args = TransformArgs()
-    out, nt_out = port_pre.fused_preprocess(_t(x), _t(nt).long(), args, True, generator=g1)
+    args = TransformArgs(random_walk_std=0.1)
+    out, nt_out = port_pre.fused_preprocess(_t(x), _t(nt).long(), args, True, generator=g1,
+                                            seed=11)
     cut = torch.randint(0, 3, (), generator=g2)
-    noise = torch.randn((B, 2 * T + 1, C), generator=g2)
+    noise = port_pre.philox_noise(11, B, T, C, args)
     want, nt_want = port_pre.fused_preprocess_reference(_t(x), _t(nt).long(), args, True,
                                                         noise, cut)
     assert torch.equal(out, want) and torch.equal(nt_out, nt_want)

@@ -8,22 +8,23 @@ remote_lm_reset, remote_lm_update_params, remote_lm_input →
 remote_lm_output_partial, remote_lm_finalize → remote_lm_output_final,
 including the conversational context prefix for LLM rescoring
 (contextual_decoding_current_context). A drop-in Redis adapter that speaks the
-original stream names lives in the JAX package's ``redis_adapter.py`` and
-is not ported yet.
+original stream names lives in ``redis_adapter.py``.
 
 Logits arrive in the wire channel order [BLANK, SIL, phones...] (what
 evaluate_model.py:190 sends after rearrange_speech_logits_pt) or the model
 order [BLANK, phones..., SIL]; the service permutes internally.
 
-Counterpart of ``b2txt_tpu/serve/service.py`` with the python searcher and
-the device searcher (``decode/lmbeam_device.py``, built on the CUDA card; a
-searcher built elsewhere, e.g. on the CPU for tests, is passed as
-``searcher=``); the native backend raises ``NotImplementedError``.
+Counterpart of ``b2txt_tpu/serve/service.py`` with its three searchers: the
+native C++ decoder on the host (``runtime``), the device searcher
+(``decode/lmbeam_device.py``, built on the CUDA card; a searcher built
+elsewhere, e.g. on the CPU for tests, is passed as ``searcher=``) and the
+python oracle.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
@@ -99,13 +100,16 @@ def _make_searcher(
     lexicon: Lexicon,
     lm: NGramLM,
     config: DecodeConfig,
+    arpa_path: Optional[str],
+    lexicon_path: Optional[str],
 ):
-    """Construct the requested searcher backend: the python searcher
-    (``decode/lmbeam.py``, the oracle the others are held to) or the device
-    searcher on the CUDA card. The native searcher waits for a later
-    slice."""
+    """Construct the requested searcher backend (all three share the
+    reset/decode/finish_decoding/result/set_opt protocol and are
+    cross-parity-tested — tests/test_torch_searcher_crosscheck.py)."""
     # lattice n-best (deep candidate lists from the provenance graph —
-    # decode/lattice.py) requires the Kaldi-style ngram state space
+    # decode/lattice.py) requires the Kaldi-style ngram state space; the
+    # device searcher decodes the pool only (the production deep-nbest path
+    # is the C++ lattice on the host core, like the reference's)
     if config.lattice_nbest and config.sum_mode:
         raise ValueError(
             "lattice_nbest requires sum_mode=False (Viterbi): merging "
@@ -126,9 +130,21 @@ def _make_searcher(
             )
         return DeviceLexiconBeamSearch(lexicon, lm, config)
     if backend == "native":
-        raise NotImplementedError(
-            "the native C++ searcher is not ported yet (ROADMAP.md queue 1, item 6)"
-        )
+        from ..runtime import NativeLexiconBeamSearch, write_lexicon
+
+        if arpa_path is None or lexicon_path is None:
+            # dump the in-memory LM/lexicon for the C++ loader
+            import tempfile
+
+            tmp = tempfile.mkdtemp(prefix="b2t_native_")
+            if arpa_path is None:
+                arpa_path = os.path.join(tmp, "lm.arpa")
+                lm.to_arpa(arpa_path)
+            if lexicon_path is None:
+                lexicon_path = os.path.join(tmp, "lexicon.txt")
+                write_lexicon(lexicon, lexicon_path)
+        return NativeLexiconBeamSearch(arpa_path, lexicon_path, config,
+                                       state_key=state_key)
     raise ValueError(
         f"searcher_backend must be 'python', 'native' or 'device', got {backend!r}"
     )
@@ -137,9 +153,12 @@ def _make_searcher(
 class DecoderService:
     """reset / update_params / decode_chunk / finalize over a fused beam search.
 
-    ``searcher_backend`` selects the engine: "device" (the batched searcher
-    on the CUDA card) or "python" (the oracle; slow, for
-    tests and small vocabularies). "native" is not ported yet.
+    ``searcher_backend`` selects the engine: "native" (C++ host decoder — the
+    production default for host decoding), "device" (the batched searcher
+    on the CUDA card), or "python" (the oracle; slow, for tests and small
+    vocabularies). The native searcher reads ``arpa_path`` and
+    ``lexicon_path``; where either is None, the in-memory ``lm`` or
+    ``lexicon`` is written to a temporary directory for it.
     """
 
     def __init__(
@@ -151,6 +170,8 @@ class DecoderService:
         llm: Optional[LLMScorer] = None,
         channel_order: str = "lm",
         searcher_backend: str = "python",
+        arpa_path: Optional[str] = None,
+        lexicon_path: Optional[str] = None,
         searcher: Optional[Any] = None,
         llm_group_candidates: int = 0,
     ):
@@ -167,7 +188,7 @@ class DecoderService:
         self.config = config or DecodeConfig()
         self.searcher_backend = searcher_backend
         self.searcher = searcher if searcher is not None else _make_searcher(
-            searcher_backend, lexicon, lm, self.config)
+            searcher_backend, lexicon, lm, self.config, arpa_path, lexicon_path)
         self.rescore_lm = rescore_lm
         # device backend: rescore the FULL candidate pool on the card (native
         # pool-rescore parity, runtime/decoder.cc:675-690) instead of the

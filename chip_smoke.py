@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds every kernel of the serving and training paths from
-``b2txt_tpu_torch`` (the four CUDA sources, one nvcc each, all at once),
-holds each kernel against its plain PyTorch
+``b2txt_tpu_torch`` (the four CUDA sources, one nvcc each, and the native
+C++ decoder, one g++, all at once), holds each kernel against its plain PyTorch
 version on the card (and, for the GRU recurrence, measures how far two
 correct versions drift apart by weight scale, against a float64 version),
 then:
@@ -13,12 +13,20 @@ then:
 - serves 16 planted requests through the full-width model (512 features,
   5×768 GRU, patch 14/4, 45 days, bf16) and the host beam search over a
   1,000-word lexicon, then decodes the same posteriors with the device
-  searcher on the card and on the CPU (``search_parity``);
+  searcher on the card and on the CPU (``search_parity``), and serves them
+  over the Redis stream protocol (``redis``: ``RedisDecoderServer`` with the
+  native searcher, in a thread over the in-process fake redis, driven by
+  ``RemoteLMClient``);
 - runs the connected pipeline at the JAX package's bench scale
   (``serve_connected``): a 125,000-word lexicon, a pruned trigram in bucket
   tables on the card with the unpruned one for the on-card pool rescore, 512
   planted requests in batches of 128 whose posteriors go from the GRU
-  straight into the device beam search;
+  straight into the device beam search, then to the host through the native
+  C++ searcher;
+- evaluates three planted sessions of 64 trials held in memory over that
+  world (``evaluate``: ``evaluate_session_data`` with the native searcher,
+  device-resident with the device searcher, ``run_single_decoding_step``,
+  the competition CSV);
 - holds the row gather K4 bit for bit against its plain version, runs its
   path (``b2txt_tpu_torch.scripts.profile_gather``'s three cases) and times
   it on the decode LM's own bucket table (``kernel_row_gather``);
@@ -99,6 +107,14 @@ CONNECTED_DECODE = dict(acoustic_scale=0.325, blank_penalty=90.0, nbest=100, bea
 # one ulp per frame over 125 frames of scores near 100 sums to ~1e-4
 SEARCH_TOL = 1e-4        # relative and absolute, as np.allclose
 GATHER_GRID = [(rw, g) for rw in (4, 64, 128) for g in (1, 37, 4096)]
+# session evaluation: three planted sessions on distinct days of TrainConfig()'s
+# session list, over the connected world; run_single_decoding_step on a few trials
+EVAL_DAYS, EVAL_TRIALS, EVAL_SINGLE = (0, 22, 44), 64, 4
+# the Redis phase streams each request's 125 frames in chunks of 32: a chunk
+# spans ~140 bins, past the end of any first word (lead 8 bins, at most 10
+# phones + SIL of at most 11 bins each), so every partial has a word
+REDIS_CHUNK = 32
+REDIS_TOL = 1e-4         # final n-best scores, wire against in-process
 GATHER_IN_FLIGHT = [1, 8, 32, 128]
 
 
@@ -134,23 +150,37 @@ def gru_bound(B: int, T: int, H: int, dtype: str):
 
 
 def phase_build():
-    """Every CUDA source of the port, one nvcc each, all started together."""
+    """Every CUDA source of the port, one nvcc each, and the native decoder's
+    two C++ sources, one g++, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from b2txt_tpu_torch import runtime
     from b2txt_tpu_torch.ops._build import (gru_bwd_library, gru_fwd_library,
                                             preprocess_library, row_gather_library)
 
+    def native():
+        t0 = time.perf_counter()
+        runtime._load()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
     libs = {"gru_fwd.cu": gru_fwd_library, "gru_bwd.cu": gru_bwd_library,
-            "row_gather.cu": row_gather_library, "preprocess.cu": preprocess_library}
+            "row_gather.cu": row_gather_library, "preprocess.cu": preprocess_library,
+            "native": native}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(fn) for name, fn in libs.items()}
         built = {name: f.result() for name, f in futures.items()}
     wall = time.perf_counter() - t0
+    gxx_s = built.pop("native")
     for name, b in built.items():
         emit({"phase": "build", "source": f"b2txt_tpu_torch/csrc/{name}",
               "library": b.path.name, "nvcc_s": b.seconds, "wall_s_all": wall})
         print(b.ptxas_report.strip(), flush=True)
+    emit({"phase": "build", "source": "b2txt_tpu_torch/runtime/decoder.cc, ngram_train.cc",
+          "library": runtime.library_path().name,
+          "compiler": "g++ " + " ".join(runtime.GXX_FLAGS),
+          "gxx_s": gxx_s, "gxx_s_is": "g++ and the library's load (near 0 if it was built)",
+          "wall_s_all": wall})
 
 
 def gru_inputs(B, T, H, weights, gen):
@@ -875,7 +905,6 @@ def phase_serve_connected(cfg, device: str, counters):
     from b2txt_tpu_torch.models.planted import features_on_device, planted_params
     from b2txt_tpu_torch.serve import DecoderService
     from b2txt_tpu_torch.utils.config import DecodeConfig
-    from b2txt_tpu_torch.utils.metrics import calculate_aggregate_error_rate
 
     t0 = time.perf_counter()
     lexicon, lm_unpruned, wl, rng = build_world(CONNECTED_VOCAB, SEED)
@@ -913,12 +942,12 @@ def phase_serve_connected(cfg, device: str, counters):
         torch.cuda.synchronize(device)
         t1 = time.perf_counter()
         outs = service.decode_batched_utterances(batches, sizes)
-        return outs, order, batches, t1 - t0, time.perf_counter() - t1
+        return outs, order, batches, sizes, t1 - t0, time.perf_counter() - t1
 
     pipeline(feats_list[:CONNECTED_BATCH])   # warm-up: one batch
     for fn in counters.values():
         fn.launches = 0
-    outs, order, batches, stage1_s, decode_s = pipeline(feats_list)
+    outs, order, batches, sizes, stage1_s, decode_s = pipeline(feats_list)
     launches = {name: fn.launches for name, fn in counters.items()}
     n_batches = len(batches)
 
@@ -926,14 +955,17 @@ def phase_serve_connected(cfg, device: str, counters):
     for i, o in zip(order, outs):
         hyp[i] = o
     sents = [s for s, _ in requests]
-    exact = sum(h.sentence == s for h, s in zip(hyp, sents))
-    search_errors = 0
-    for h, s in zip(hyp, sents):
-        truth = [r for r in h.nbest if r[0] == s]
-        if h.sentence != s and truth and h.nbest and truth[0][4] > h.nbest[0][4]:
-            search_errors += 1
-    wer, lo, hi, _ = calculate_aggregate_error_rate(
-        [s.split() for s in sents], [h.sentence.split() for h in hyp], seed=0)
+    exact, search_errors, wer, (lo, hi) = score(hyp, sents)
+
+    # the same posteriors fetched to the host, through the native searcher
+    host_lp, k = [None] * len(requests), 0
+    for (lp, lens), n in zip(batches, sizes):
+        arr = lp.cpu().numpy()
+        for row in range(n):
+            host_lp[order[k]] = arr[row, : lens[row]]
+            k += 1
+    native_fig, native_service = native_decode((lexicon, lm, lm_unpruned), dcfg, host_lp,
+                                               sents, hyp)
 
     # one batch's log-probs through the kernels and with the plain recurrence
     # patched in. The planted W_hh is 0, so this holds K1's row and gate
@@ -974,7 +1006,7 @@ def phase_serve_connected(cfg, device: str, counters):
            "lm_entries": {"decode": searcher.dev_lm.n_entries,
                           "rescore": searcher.rescore_lm.n_entries},
            "exact": exact, "search_errors": search_errors, "wer": wer, "wer_ci": [lo, hi],
-           "stage1_vs_plain": stage1_vs_plain,
+           **native_fig, "stage1_vs_plain": stage1_vs_plain,
            "sentences_per_s": len(requests) / (stage1_s + decode_s),
            "stage1_ms_per_batch": stage1_s * 1e3 / n_batches,
            "decode_ms_per_batch": decode_s * 1e3 / n_batches,
@@ -982,7 +1014,304 @@ def phase_serve_connected(cfg, device: str, counters):
            "world_build_s": world_s, "prune_s": prune_s, "table_build_s": table_s,
            "device_table_bytes": sizes_bytes, "launches": launches}
     emit(fig)
-    return fig, searcher
+    world = {"searcher": searcher, "native_service": native_service, "model": model,
+             "lexicon": lexicon, "lm": lm, "lm_unpruned": lm_unpruned, "decode": dcfg,
+             "words": wl, "rng": rng, "code": code}
+    return fig, world
+
+
+def score(finals, sents):
+    """Exact sentences, search errors (the planted sentence is in the n-best
+    and scores above the answer) and WER with its bootstrap CI."""
+    from b2txt_tpu_torch.utils.metrics import calculate_aggregate_error_rate
+
+    exact = sum(h.sentence == s for h, s in zip(finals, sents))
+    search_errors = 0
+    for h, s in zip(finals, sents):
+        truth = [r for r in h.nbest if r[0] == s]
+        if h.sentence != s and truth and h.nbest and truth[0][4] > h.nbest[0][4]:
+            search_errors += 1
+    wer, lo, hi, _ = calculate_aggregate_error_rate(
+        [s.split() for s in sents], [h.sentence.split() for h in finals], seed=0)
+    return exact, search_errors, wer, [lo, hi]
+
+
+def host_cpu() -> dict:
+    """The host's CPU as ``/proc/cpuinfo`` describes its first core (some
+    hosts report the model name as "unknown"; family and model number still
+    identify it), its architecture and the cores this process may use:
+    host-side figures stand beside them."""
+    import os
+    import platform
+
+    info = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().split("\n\n")[0].splitlines():
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    return {"model_name": info.get("model name", "not reported"),
+            "vendor": info.get("vendor_id"), "family": info.get("cpu family"),
+            "model": info.get("model"), "mhz": info.get("cpu MHz"),
+            "arch": platform.machine(), "cores": len(os.sched_getaffinity(0))}
+
+
+def write_world(directory, lexicon, lm, lm_unpruned) -> dict:
+    """The decode LM and the unpruned one as ARPA, and the lexicon as the
+    native loader reads it (bench.py writes the same three files)."""
+    from b2txt_tpu_torch.runtime import write_lexicon
+
+    paths = {k: str(Path(directory) / name) for k, name in
+             (("arpa", "lm.arpa"), ("unpruned", "lm_unpruned.arpa"), ("lexicon", "lexicon.txt"))}
+    lm.to_arpa(paths["arpa"])
+    lm_unpruned.to_arpa(paths["unpruned"])
+    write_lexicon(lexicon, paths["lexicon"])
+    return paths
+
+
+def native_decode(world, dcfg, host_lp, sents, device_finals):
+    """The connected posteriors on the host through
+    ``DecoderService(searcher_backend="native")`` with the JAX package's
+    signature (``arpa_path``, ``lexicon_path``): the pruned trigram and the
+    lexicon as files, the unpruned trigram loaded for the native pool
+    rescore (bench.py's native run). Returns the figures and the service."""
+    import tempfile
+
+    from b2txt_tpu_torch.serve import DecoderService
+
+    lexicon, lm, lm_unpruned = world
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
+        t0 = time.perf_counter()
+        files = write_world(tmp, lexicon, lm, lm_unpruned)
+        t1 = time.perf_counter()
+        service = DecoderService(lexicon, lm, dcfg, None, None, "model", "native",
+                                 files["arpa"], files["lexicon"])
+        service.searcher.set_rescore_lm(files["unpruned"])
+        t2 = time.perf_counter()
+    finals = service.decode_utterances(host_lp)
+    t3 = time.perf_counter()
+    exact, search_errors, wer, ci = score(finals, sents)
+    return {"native_exact": exact, "native_search_errors": search_errors, "native_wer": wer,
+            "native_wer_ci": ci,
+            "native_equals_device": sum(a.sentence == b.sentence
+                                        for a, b in zip(finals, device_finals)),
+            "native_sentences_per_s": len(finals) / (t3 - t2), "native_load_s": t2 - t1,
+            "native_write_files_s": t1 - t0, "native_lm_entries": service.searcher.lm_entries,
+            "native_clock": "host, DecoderService.decode_utterances over host arrays",
+            "host_cpu": host_cpu()}, service
+
+
+def planted_sessions(world, names, trials: int, bins: int, seed: int, device) -> dict:
+    """Planted sessions in ``load_session_file``'s layout, held in memory:
+    per session ``trials`` sentences of the world's words, their features
+    (made on ``device``), phoneme ids with SIL at word ends, labels."""
+    import torch
+
+    from b2txt_tpu_torch.models.planted import features_on_device
+
+    lexicon = world["lexicon"]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    code = torch.from_numpy(world["code"]).to(device)
+    out = {}
+    for name in names:
+        reqs = plant_requests(lexicon, world["words"], rng, trials, bins)
+        labels = torch.from_numpy(np.stack([lab for _, lab in reqs])).to(device)
+        feats = features_on_device(code, labels, gen, noise=0.3).cpu().numpy()
+        ids = [np.asarray([p for w in sent.split()
+                           for p in list(lexicon.prons[lexicon.word_ids[w]][0]) + [40]], np.int32)
+               for sent, _ in reqs]
+        out[name] = {"neural_features": list(feats), "n_time_steps": [bins] * trials,
+                     "seq_class_ids": ids, "seq_len": [len(i) for i in ids],
+                     "transcriptions": [None] * trials,
+                     "sentence_label": [sent for sent, _ in reqs], "session": [name] * trials,
+                     "block_num": [t // 16 for t in range(trials)],
+                     "trial_num": list(range(trials))}
+    return out
+
+
+def phase_evaluate(cfg, world, counters):
+    """Session evaluation (``evaluate.harness``) over three planted sessions
+    held in memory, on distinct days, with the connected phase's model and
+    world: (a) the batched host mode with the native DecoderService, (b) the
+    device-resident mode with a device DecoderService around the connected
+    phase's searcher, (c) ``run_single_decoding_step`` on a few trials; then
+    the competition CSV. K1's launches are counted in each mode."""
+    import copy
+    import csv
+    import tempfile
+
+    import torch
+
+    from b2txt_tpu_torch.evaluate import (evaluate_session_data, run_single_decoding_step,
+                                          write_competition_csv)
+    from b2txt_tpu_torch.serve import DecoderService
+    from b2txt_tpu_torch.utils.phonemes import greedy_collapse
+
+    model = world["model"]
+    device = model.h0.device
+    # the training session list gives each session its day: one per day layer
+    cfg = copy.deepcopy(cfg)
+    cfg.dataset.sessions = [f"synthetic.{i:02d}" for i in range(model.n_days)]
+    names = [cfg.dataset.sessions[d] for d in EVAL_DAYS]
+    t0 = time.perf_counter()
+    data = planted_sessions(world, names, EVAL_TRIALS, BINS, SEED + 7, device)
+    make_s = time.perf_counter() - t0
+    device_service = DecoderService(world["lexicon"], world["lm"], world["decode"],
+                                    rescore_lm=world["lm_unpruned"], channel_order="model",
+                                    searcher_backend="device", searcher=world["searcher"])
+
+    def run(fn):
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return out, {"s": time.perf_counter() - t0,
+                     "launches": {n: f.launches for n, f in counters.items()}}
+
+    modes = {}
+    a, modes["native_host"] = run(lambda: evaluate_session_data(
+        model, cfg, data.items(), decoder=world["native_service"],
+        compute_dtype=torch.bfloat16))
+    b, modes["device_resident"] = run(lambda: evaluate_session_data(
+        model, cfg, data.items(), decoder=device_service, compute_dtype=torch.bfloat16,
+        device_resident=True))
+    first = data[names[0]]
+    single, modes["single_step"] = run(lambda: [
+        run_single_decoding_step(model, x, EVAL_DAYS[0], cfg, torch.bfloat16)
+        for x in first["neural_features"][:EVAL_SINGLE]])
+    for out, m in ((a, modes["native_host"]), (b, modes["device_resident"])):
+        m.update({"greedy_PER": out["greedy_PER"], "day_PER": out["day_PER"],
+                  "wer": out["WER"], "wer_ci": list(out["WER_CI"]),
+                  "sentences_per_s": out["sentences_per_sec"],
+                  "lm_decode_s": out["lm_decode_time"]})
+    single_ids = [greedy_collapse(np.argmax(lg, axis=-1)) for lg in single]
+    single_err = max(float(np.abs(lg - t.logits).max()) for lg, t in zip(single, a["trials"]))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        path = str(Path(tmp) / "submission.csv")
+        write_competition_csv(a["trials"], path)
+        with open(path, newline="") as f:
+            csv_rows = sum(1 for _ in csv.reader(f))
+    n = len(a["trials"])
+    fig = {"phase": "evaluate", "sessions": names,
+           "day_idx": sorted({t.day_idx for t in a["trials"]}),
+           "trials_per_session": EVAL_TRIALS, "bins": BINS, "vocab": CONNECTED_VOCAB,
+           "input": "planted sessions in memory, load_session_file's layout",
+           "sessions_make_s": make_s, "modes": modes,
+           "exact": {"native_host": sum(t.decoded_sentence == t.sentence_label for t in a["trials"]),
+                     "device_resident": sum(t.decoded_sentence == t.sentence_label
+                                            for t in b["trials"])},
+           "same_sentence_both_modes": sum(x.decoded_sentence == y.decoded_sentence
+                                           for x, y in zip(a["trials"], b["trials"])),
+           "same_greedy_ids_both_modes": sum(x.decoded_ids == y.decoded_ids
+                                             for x, y in zip(a["trials"], b["trials"])),
+           "single_step_trials": EVAL_SINGLE,
+           "single_step_same_greedy_ids": sum(ids == t.decoded_ids
+                                              for ids, t in zip(single_ids, a["trials"])),
+           "single_step_vs_batched_max_abs": single_err, "single_step_tol": "2e-2 (bf16)",
+           "csv_rows": csv_rows, "trials": n, "host_cpu": host_cpu()}
+    emit(fig)
+    return fig
+
+
+def check_evaluate(fig) -> list:
+    problems = []
+    n, modes = fig["trials"], fig["modes"]
+    for label in ("native_host", "device_resident"):
+        if modes[label]["wer"] != 0.0 or fig["exact"][label] != n:
+            problems.append(f"evaluate ({label}): WER {modes[label]['wer']}, "
+                            f"{fig['exact'][label]}/{n} exact")
+    for label in ("native_host", "device_resident", "single_step"):
+        if modes[label]["launches"]["gru_fwd"] == 0:
+            problems.append(f"evaluate ({label}): gru_fwd never launched")
+    if (fig["same_sentence_both_modes"], fig["same_greedy_ids_both_modes"]) != (n, n):
+        problems.append(f"evaluate: the two modes differ: {fig['same_sentence_both_modes']} "
+                        f"sentences, {fig['same_greedy_ids_both_modes']} greedy ids of {n} agree")
+    if (fig["single_step_same_greedy_ids"] != fig["single_step_trials"]
+            or not fig["single_step_vs_batched_max_abs"] <= 2e-2):
+        problems.append(f"evaluate: run_single_decoding_step against the batched mode: "
+                        f"{fig['single_step_same_greedy_ids']} greedy ids agree, "
+                        f"max |diff| {fig['single_step_vs_batched_max_abs']}")
+    if fig["csv_rows"] != n + 1 or len(fig["day_idx"]) != len(EVAL_DAYS):
+        problems.append(f"evaluate: {fig['csv_rows']} CSV rows for {n} trials, "
+                        f"days {fig['day_idx']}")
+    return problems
+
+
+def phase_redis(world, logits, requests):
+    """``RedisDecoderServer`` looping in a thread over the port's in-process
+    fake redis (neither the ``redis`` package nor a server is on the
+    machine), wrapping a native DecoderService over the serve phase's world;
+    ``RemoteLMClient`` sends each served request (posteriors from K1):
+    reset, update_params, the logits in chunks, finalize. The finals are
+    held against the in-process service with the same backend."""
+    import threading
+
+    from b2txt_tpu_torch.serve import fakeredis
+
+    fakeredis.install_fake_redis()   # before the adapter and client import redis
+    fakeredis.reset_all()
+    from b2txt_tpu_torch.serve import DecoderService, FinalOutput
+    from b2txt_tpu_torch.serve.redis_adapter import RedisDecoderServer
+    from b2txt_tpu_torch.serve.redis_client import RemoteLMClient
+    from b2txt_tpu_torch.utils.config import DecodeConfig
+    from b2txt_tpu_torch.utils.phonemes import rearrange_speech_logits
+
+    lexicon, lm = world
+    knobs = dict(acoustic_scale=0.325, blank_penalty=90.0, nbest=100)
+    served = DecoderService(lexicon, lm, DecodeConfig(), searcher_backend="native",
+                            channel_order="lm")
+    in_process = DecoderService(lexicon, lm, DecodeConfig(**knobs), searcher_backend="native",
+                                channel_order="model")
+    server = RedisDecoderServer(served)
+    thread = threading.Thread(target=server.run, daemon=True)
+    thread.start()
+    finals, partials, latency_s = [], [], []
+    try:
+        client = RemoteLMClient()
+        for lg in logits:
+            t0 = time.perf_counter()
+            client.reset()
+            client.update_params(**knobs)
+            partials.append([client.send_logits(rearrange_speech_logits(lg[i : i + REDIS_CHUNK]))
+                             for i in range(0, lg.shape[0], REDIS_CHUNK)])
+            finals.append(client.finalize())
+            latency_s.append(time.perf_counter() - t0)
+    finally:
+        server.stop()
+        thread.join(timeout=10)
+    want = [FinalOutput.parse_scoring(o.scoring_packed())
+            for o in in_process.decode_utterances(logits)]
+    same_sentences, max_abs = True, 0.0
+    for f, w in zip(finals, want):
+        if f.sentence != w.sentence or [r[0] for r in f.nbest] != [r[0] for r in w.nbest]:
+            same_sentences = False
+            continue
+        max_abs = max(max_abs, float(np.abs(np.array([r[1:] for r in f.nbest])
+                                            - np.array([r[1:] for r in w.nbest])).max()))
+    fig = {"phase": "redis",
+           "redis": "RedisDecoderServer in a thread over the in-process fake redis "
+                    "(b2txt_tpu_torch/serve/fakeredis.py): no redis package or server",
+           "backend": "native", "requests": len(logits), "chunk_frames": REDIS_CHUNK,
+           "exact": sum(f.sentence == s for f, (s, _) in zip(finals, requests)),
+           "chunks": sum(len(p) for p in partials),
+           "nonempty_partials": sum(bool(x) for p in partials for x in p),
+           "config_after_update_params": served.config == in_process.config,
+           "finals_same_sentences_as_in_process": same_sentences,
+           "finals_max_abs_score_diff": max_abs, "tol": REDIS_TOL,
+           "nbest_rows": [len(f.nbest) for f in finals],
+           "latency_ms_per_request": [t * 1e3 for t in latency_s],
+           "latency_ms_mean": 1e3 * sum(latency_s) / len(latency_s),
+           "latency_clock": "host, client side: reset to finalize", "host_cpu": host_cpu(),
+           "server_stopped": not thread.is_alive()}
+    fig["ok"] = (fig["exact"] == len(logits) and fig["nonempty_partials"] == fig["chunks"]
+                 and same_sentences and max_abs <= REDIS_TOL
+                 and fig["config_after_update_params"] and fig["server_stopped"])
+    emit(fig)
+    return fig
 
 
 def gather_entry(p: dict) -> dict:
@@ -1047,6 +1376,13 @@ def check_connected(fig, n_layers) -> list:
     if (fig["exact"], fig["search_errors"], fig["wer"]) != (fig["requests"], 0, 0.0):
         problems.append(f"serve_connected: {fig['exact']}/{fig['requests']} exact, "
                         f"{fig['search_errors']} search errors, WER {fig['wer']}")
+    native = (fig["native_exact"], fig["native_search_errors"], fig["native_wer"],
+              fig["native_equals_device"])
+    if native != (fig["requests"], 0, 0.0, fig["requests"]):
+        problems.append(f"serve_connected (native): {fig['native_exact']}/{fig['requests']} "
+                        f"exact, {fig['native_search_errors']} search errors, WER "
+                        f"{fig['native_wer']}, top-1 equal to the device searcher's on "
+                        f"{fig['native_equals_device']}")
     return problems
 
 
@@ -1115,13 +1451,17 @@ def main() -> int:
     parity = phase_search_parity(world, logits, requests, outs)
     if not parity["ok"]:
         problems.append(f"search_parity: {parity}")
-    conn, searcher = phase_serve_connected(cfg, "cuda", {"gru_fwd": gru_layer_forward})
+    redis_fig = phase_redis(world, logits, requests)
+    if not redis_fig["ok"]:
+        problems.append(f"redis: {redis_fig}")
+    conn, conn_world = phase_serve_connected(cfg, "cuda", {"gru_fwd": gru_layer_forward})
     problems += check_connected(conn, cfg.model.n_layers)
-    gather_fig = phase_kernel_row_gather(searcher.dev_lm.table[0])
+    problems += check_evaluate(phase_evaluate(cfg, conn_world, {"gru_fwd": gru_layer_forward}))
+    gather_fig = phase_kernel_row_gather(conn_world["searcher"].dev_lm.table[0])
     if not gather_fig["ok"] or gather_fig["launches"] == 0:
         problems.append(f"row_gather disagrees with its plain version or never launched: "
                         f"{gather_fig['grid_bit_exact']}, {gather_fig['launches']}")
-    del searcher
+    del conn_world
     train_fig = phase_train({"gru_fwd": gru_layer_forward, "gru_bwd": gru_layer_backward,
                              "fused_preprocess": fused_preprocess})
     problems += check_train(train_fig, cfg.model.n_layers)

@@ -11,6 +11,9 @@ COPIES = [
     "utils/phonemes.py", "utils/metrics.py", "lm/arpa.py", "lm/ngram.py",
     "lm/lexicon.py", "decode/lmbeam.py", "decode/lattice.py", "decode/rescore.py",
     "data/sampler.py", "utils/logging.py",
+    "runtime/decoder.cc", "runtime/ngram_train.cc", "data/real_assets.py", "utils/lts.py",
+    "utils/g2p.py", "evaluate/golden.py", "serve/fakeredis.py", "serve/redis_adapter.py",
+    "serve/redis_client.py",
 ]
 
 
@@ -51,6 +54,16 @@ CHANGED = {
         self.torch = torch
         self.device = device or ("cuda" if torch.cuda.is_available() else "cpu")
 """),
+    # the reference checkout defaults to ./reference (B2TXT_REFERENCE_ROOT names
+    # another); the original's default is a path of the machine it was written on
+    "data/real_assets.py": (
+        '''REFERENCE_ROOT = os.environ.get("B2TXT_REFERENCE_ROOT", "reference")''',
+        next(ln for ln in (ROOT / "b2txt_tpu/data/real_assets.py").read_text().splitlines()
+             if ln.startswith("REFERENCE_ROOT = "))),
+    # the port's logger
+    "serve/redis_adapter.py": (
+        '''LOG = logging.getLogger("b2txt_tpu_torch.serve.redis")''',
+        '''LOG = logging.getLogger("b2txt_tpu.serve.redis")'''),
 }
 
 
@@ -63,6 +76,19 @@ def test_copy_is_verbatim(rel):
         assert ours.count(port_text) == 1
         ours = ours.replace(port_text, original)
     assert ours == (ROOT / "b2txt_tpu" / rel).read_text()
+
+
+def test_lts_asset_is_byte_identical_and_loads():
+    """The packaged letter-to-sound model sits beside the port's package, so
+    the port's g2p loads it (a missing asset would fall back to the rules
+    without a word)."""
+    from b2txt_tpu_torch.utils.g2p import G2p
+    from b2txt_tpu_torch.utils.lts import LetterToSound
+
+    rel = "assets/lts_cmudict.json.gz"
+    assert (ROOT / "b2txt_tpu_torch" / rel).read_bytes() == (ROOT / "b2txt_tpu" / rel).read_bytes()
+    assert Path(LetterToSound.pretrained_path()) == ROOT / "b2txt_tpu_torch" / rel
+    assert G2p().lts is not None
 
 
 def test_causal_lm_rescorer_runs_on_the_card_unless_told_otherwise():

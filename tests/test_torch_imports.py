@@ -18,8 +18,10 @@ _CHILD = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["b2txt_tpu"] = None
-sys.modules["triton"] = None       # no module imports triton; h5py loads only inside functions
-sys.modules["h5py"] = None
+sys.modules["triton"] = None       # no module imports triton; h5py, PyYAML and redis
+sys.modules["h5py"] = None         # load only inside the functions that need them
+sys.modules["yaml"] = None
+sys.modules["redis"] = None
 import b2txt_tpu_torch
 names = ["b2txt_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(b2txt_tpu_torch.__path__, "b2txt_tpu_torch.")
@@ -49,7 +51,13 @@ def test_every_module_imports_without_jax():
                 "b2txt_tpu_torch.data.loader", "b2txt_tpu_torch.data.sampler",
                 "b2txt_tpu_torch.data.hdf5_store", "b2txt_tpu_torch.utils.logging",
                 "b2txt_tpu_torch.lm.device_ngram", "b2txt_tpu_torch.decode.lmbeam_device",
-                "b2txt_tpu_torch.ops.gather", "b2txt_tpu_torch.scripts.profile_gather"}
+                "b2txt_tpu_torch.ops.gather", "b2txt_tpu_torch.scripts.profile_gather",
+                "b2txt_tpu_torch.runtime", "b2txt_tpu_torch.serve.redis_adapter",
+                "b2txt_tpu_torch.serve.redis_client", "b2txt_tpu_torch.serve.fakeredis",
+                "b2txt_tpu_torch.utils.g2p", "b2txt_tpu_torch.utils.lts",
+                "b2txt_tpu_torch.data.real_assets", "b2txt_tpu_torch.evaluate.golden",
+                "b2txt_tpu_torch.scripts.evaluate_model",
+                "b2txt_tpu_torch.scripts.language_model_standalone"}
     assert expected <= set(report["names"])
 
 

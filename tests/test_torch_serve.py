@@ -93,11 +93,29 @@ def test_served_slice_matches_jax(requests):
             np.array([r[1:] for r in j.nbest], np.float64), rtol=0, atol=1e-4)
 
 
-def test_unported_backends_raise():
+def test_unported_backends_raise(requests):
+    """Every backend of the JAX package is ported: "native" builds the C++
+    searcher (its in-memory LM and lexicon dumped for the loader) and gives
+    the JAX package's native n-best on the same logits; a backend neither
+    package has raises."""
+    code, feats = requests
     lexicon = Lexicon.from_words(port_synthetic.word_pronunciations())
     lm = train_ngram(port_synthetic.sentence_corpus(), order=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecoderService(lexicon, lm, searcher_backend="native")
+    with pytest.raises(ValueError, match="searcher_backend"):
+        DecoderService(lexicon, lm, searcher_backend="tpu")
+
+    cfg = _small(TrainConfig())
+    model = GRUDecoder(cfg.model, N_DAYS, 41, device="cpu")
+    model.load_state_dict(planted_params(cfg.model, N_DAYS, code))
+    logits = _batched_inference(model, feats, 1, cfg, torch.float32)
+    service = DecoderService(lexicon, lm, DecodeConfig(**DECODE), searcher_backend="native",
+                             channel_order="model")
+    jservice = JaxDecoderService(
+        JaxLexicon.from_words(word_pronunciations()), jax_train_ngram(sentence_corpus(), order=3),
+        JaxDecodeConfig(**DECODE), searcher_backend="native", channel_order="model")
+    outs = service.decode_utterances(logits)
+    assert [o.sentence for o in outs] == SENTENCES
+    assert [o.nbest for o in outs] == [j.nbest for j in jservice.decode_utterances(logits)]
 
 
 # the device backend: canonical search settings at a small beam

@@ -1,4 +1,7 @@
+from .prefix_beam import CtcPrefixBeamSearch, ctc_prefix_beam_search
+from .prefix_beam_device import backtrace, beam_search_scan, ctc_prefix_beam_search_device
 from .lmbeam import DecodeResult, LexiconBeamSearch, decode_numpy
+from .device_lm import DeviceCausalLMRescorer
 from .rescore import (
     NGramLLMAdapter,
     TorchCausalLMRescorer,

@@ -55,6 +55,7 @@ from ..lm.lexicon import Lexicon
 from ..lm.ngram import NGramLM
 from ..utils.config import DecodeConfig
 from ..utils.device import resolve_device
+from ..utils.device import upload as _upload
 from ..utils.phonemes import BLANK_ID, SIL_ID_MODEL
 from .lmbeam import DecodeResult
 
@@ -67,16 +68,6 @@ def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     m_safe = m.clamp(min=NEG)
     out = m_safe + torch.log1p(torch.exp(torch.minimum(a, b) - m_safe))
     return out.masked_fill(m <= NEG, NEG)
-
-
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``. To the card it goes through pinned memory
-    with a non-blocking copy: a pageable copy would wait for the stream, and
-    a batch's dispatch must not wait for the card."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _key64(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:

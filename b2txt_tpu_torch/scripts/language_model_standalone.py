@@ -1,14 +1,18 @@
 """Standalone LM decode server speaking the reference's Redis protocol
 (reference: language_model/language-model-standalone.py CLI, :793-824).
 
-Counterpart of ``scripts/language_model_standalone.py`` without its
-``--opt_backend`` options (the JAX OPT rescorer has no counterpart in the
-port yet; ``--do_opt`` uses the transformers rescorer), plus ``--device``:
+Counterpart of ``scripts/language_model_standalone.py``, plus ``--device``:
 the device searcher (``--searcher device``) and the LLM run on the CUDA card
 unless ``--device cpu`` is given; the native and python searchers run on the
-host.
+host. ``--do_opt`` rescores with the transformers model (``--opt_backend
+torch``) or with the port's OPT (``--opt_backend port``, decode/opt_lm.py:
+bf16 weights from ``--opt_weights``, or drawn on the device with
+``--opt_random_init``; GPT-2 BPE from ``--opt_vocab`` and ``--opt_merges``).
 
     python -m b2txt_tpu_torch.scripts.language_model_standalone --lm_path lm/openwebtext_3gram
+    python -m b2txt_tpu_torch.scripts.language_model_standalone --lm_path L --do_opt \
+        --opt_backend port --opt_weights opt-6.7b.pt --opt_vocab vocab.json \
+        --opt_merges merges.txt
 
 The --lm_path directory holds lm.arpa (+ optional lm_unpruned.arpa for
 --rescore) and lexicon.txt — the ARPA/lexicon replace the reference's
@@ -43,6 +47,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--do_opt", action="store_true")
     p.add_argument("--opt_model", type=str, default="facebook/opt-6.7b")
     p.add_argument("--opt_cache_dir", type=str, default=None)
+    p.add_argument("--opt_backend", default="torch", choices=["torch", "port"],
+                   help="LLM rescorer: host transformers (reference parity) "
+                   "or the port's OPT on --device (decode/opt_lm.py)")
+    p.add_argument("--opt_weights", type=str, default=None,
+                   help="(port) torch state_dict file of OPT weights (HF names); "
+                   "held bf16 on the device")
+    p.add_argument("--opt_vocab", type=str, default=None,
+                   help="(port) GPT-2 vocab.json for the byte-level BPE")
+    p.add_argument("--opt_merges", type=str, default=None,
+                   help="(port) GPT-2 merges.txt")
+    p.add_argument("--opt_random_init", action="store_true",
+                   help="(port) random bf16 weights drawn on the device instead of "
+                   "--opt_weights — throughput measurement only")
+    p.add_argument("--opt_size", default="6.7b", choices=["6.7b", "tiny"],
+                   help="(port) architecture shapes (tiny is the test config)")
     p.add_argument("--alpha", type=float, default=0.5)
     p.add_argument("--searcher", default="native",
                    choices=["native", "device", "python"],
@@ -58,8 +77,41 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def port_opt(args, parser) -> "OPTRescorer":
+    """The port's OPT rescorer as the options describe it, bf16 on
+    ``--device``."""
+    import torch
+
+    from ..decode.opt_lm import OPTConfig, OPTRescorer, init_params, params_from_hf
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = OPTConfig.opt_6_7b() if args.opt_size == "6.7b" else OPTConfig.tiny()
+    encode = None
+    if args.opt_vocab and args.opt_merges:
+        from ..utils.bpe import ByteBPE
+
+        encode = ByteBPE.for_opt(args.opt_vocab, args.opt_merges)
+    if args.opt_weights:
+        sd = torch.load(args.opt_weights, map_location="cpu", weights_only=True)
+        if "model_state_dict" in sd:
+            sd = sd["model_state_dict"]
+        params = {k: v.to(device, torch.bfloat16) for k, v in params_from_hf(sd).items()
+                  if k != "lm_head.weight"}   # tied: OPTRescorer ties it again
+    elif args.opt_random_init:
+        # drawn on the device: shipping 13.3 GB from the host is the wrong
+        # default for a measurement-only mode
+        params = init_params(cfg, device, torch.bfloat16,
+                             torch.Generator(device=device).manual_seed(0))
+    else:
+        parser.error("--opt_backend port requires --opt_weights or --opt_random_init")
+    return OPTRescorer(cfg, params=params, encode=encode, device=device,
+                       compute_dtype=torch.bfloat16)
+
+
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
 
     from ..lm import Lexicon, NGramLM
     from ..serve import DecoderService
@@ -74,7 +126,9 @@ def main(argv=None) -> None:
     if args.rescore and os.path.exists(unpruned):
         rescore_lm = NGramLM.from_arpa(unpruned)
     llm = None
-    if args.do_opt:
+    if args.do_opt and args.opt_backend == "port":
+        llm = port_opt(args, parser)
+    elif args.do_opt:
         from ..decode.rescore import TorchCausalLMRescorer
 
         llm = TorchCausalLMRescorer(args.opt_model, cache_dir=args.opt_cache_dir,

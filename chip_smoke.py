@@ -30,6 +30,16 @@ then:
 - holds the row gather K4 bit for bit against its plain version, runs its
   path (``b2txt_tpu_torch.scripts.profile_gather``'s three cases) and times
   it on the decode LM's own bucket table (``kernel_row_gather``);
+- runs the CTC prefix beam searcher (``prefix_beam``) on the card over 8 of
+  the connected batch's posteriors, against the numpy oracle on the host;
+- draws OPT-6.7b's weights (bf16, random, from a seed) on the card and runs
+  the full finalize on the connected world's first batch of 128 requests
+  (``finalize_opt``: K1 → device searcher → augment_nbest → the OPT α-blend
+  in ``DecoderService``, per utterance and grouped), then times the OPT
+  forward at two shapes and holds it at full width and 2 layers against the
+  CPU (``opt_forward``), and rescores 100-candidate n-best lists packed,
+  unpacked, and with a 48-word context through the prefix-KV path and by
+  concatenation (``opt_rescore``);
 - trains the full-width model (``TrainConfig()`` defaults: bf16, dropout,
   augmentation, batch 64 over 4 days) for 20 steps with the augmentations in
   PyTorch and 5 with the fused kernel, on synthetic trials in memory, and
@@ -116,6 +126,32 @@ EVAL_DAYS, EVAL_TRIALS, EVAL_SINGLE = (0, 22, 44), 64, 4
 REDIS_CHUNK = 32
 REDIS_TOL = 1e-4         # final n-best scores, wire against in-process
 GATHER_IN_FLIGHT = [1, 8, 32, 128]
+# OPT-6.7b at its published widths, random bf16 weights drawn on the card
+# (scripts/bench_opt.py's stages A-D): forward shapes (B, L), 100-candidate
+# n-best lists of 6 words from a 3,000-word pool, a 48-word context
+OPT_SEED = 11
+# (1, 64): one packed row, the shape of a per-utterance finalize call
+OPT_SHAPES = [(32, 32), (8, 128), (1, 64)]
+OPT_LISTS, OPT_NBEST, OPT_POOL, OPT_CONTEXT_WORDS = 8, 100, 3000, 48
+OPT_MAX_LEN = 32           # bench_opt.py stage B's rescorer
+OPT_PARITY_LAYERS, OPT_PARITY_TEXTS = 2, 32
+# full width, 2 layers, f32 with TF32 off: the card against the same code on
+# the CPU, per-text score sums (~-90 over ~7 tokens); summation order only
+OPT_F32_TOL = 1e-3
+# bf16 against f32, and bf16 paths against each other (packed/unpacked,
+# grouped/per-utterance): the JAX package's own bf16 tolerance for OPT
+# scores (tests/test_opt_lm.py:214); the context sums (~-600 over ~55 tokens)
+# take its prefix-path tolerance (:280)
+OPT_BF16_TOL = dict(rtol=2e-2, atol=0.35)
+OPT_PREFIX_TOL = dict(rtol=2e-2, atol=0.5)
+# the full finalize as bench_opt.py stage C sets it, on the connected world
+FINALIZE_KNOBS = dict(do_opt=True, alpha=0.55)
+LLM_GROUP = 96
+# the CTC prefix beam searcher on the connected batch's posteriors against
+# the numpy oracle (float64 on the host): the reference test's tolerance
+# (tests/test_prefix_beam.py:100-130)
+PREFIX_UTTS, PREFIX_K, PREFIX_TOP = 8, 16, 8
+PREFIX_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def emit(obj) -> None:
@@ -1016,7 +1052,8 @@ def phase_serve_connected(cfg, device: str, counters):
     emit(fig)
     world = {"searcher": searcher, "native_service": native_service, "model": model,
              "lexicon": lexicon, "lm": lm, "lm_unpruned": lm_unpruned, "decode": dcfg,
-             "words": wl, "rng": rng, "code": code}
+             "words": wl, "rng": rng, "code": code, "infer": infer,
+             "first_batch": (feats_list[:CONNECTED_BATCH], sents[:CONNECTED_BATCH])}
     return fig, world
 
 
@@ -1386,6 +1423,314 @@ def check_connected(fig, n_layers) -> list:
     return problems
 
 
+def opt_texts(seed: int = 0):
+    """bench_opt.py stage B's n-best lists: per list, 6 words from a 3,000-word
+    pool, then 100 candidates each with one word swapped; and a 48-word
+    context (its stage D)."""
+    rng = np.random.default_rng(seed)
+    pool = [f"word{i}" for i in range(OPT_POOL)]
+    lists = []
+    for _ in range(OPT_LISTS):
+        base = [pool[i] for i in rng.integers(0, OPT_POOL, 6)]
+        cands = []
+        for _ in range(OPT_NBEST):
+            c = list(base)
+            c[rng.integers(0, len(c))] = pool[rng.integers(0, OPT_POOL)]
+            cands.append(" ".join(c))
+        lists.append(cands)
+    context = " ".join(pool[i] for i in rng.integers(0, OPT_POOL, OPT_CONTEXT_WORDS))
+    return lists, context
+
+
+def opt_bound(cfg, B: int, L: int):
+    """Least time for one bf16 forward at (B, L): the weights read once, the
+    tokens and mask read and the f32 logits written once, against
+    2 · parameters · tokens flops at the bf16 peak."""
+    nbytes = 2 * cfg.n_params + B * L * (8 + 4) + 4 * B * L * cfg.vocab_size
+    flops = 2.0 * cfg.n_params * B * L
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), flops
+
+
+def max_abs(a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def phase_opt_forward(params, init_s: float):
+    """OPT-6.7b's bf16 forward at its published widths (random weights drawn
+    on the card): ms and tokens/s by CUDA events, the bound, the share of
+    the bf16 peak, the card's peak memory. Then at full width and 2 layers:
+    f32 on the card against the same code on the CPU, and bf16 against f32
+    on the card, per-text score sums of one n-best list."""
+    import dataclasses
+
+    import torch
+
+    from b2txt_tpu_torch.decode.opt_lm import (OPTConfig, OPTModel, OPTRescorer, init_params,
+                                               word_hash_encode)
+
+    cfg = OPTConfig.opt_6_7b()
+    model = OPTModel.from_state_dict(cfg, params, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(OPT_SEED + 1)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    shapes = []
+    for B, L in OPT_SHAPES:
+        tokens = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device="cuda")
+        mask = torch.ones((B, L), device="cuda")
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(tokens, mask, torch.bfloat16), iters=8, warmup=2)
+        bound_ms, bound_by, flops = opt_bound(cfg, B, L)
+        shapes.append({"B": B, "L": L, "ms": ms, "tokens_per_s": B * L / ms * 1e3,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bound_share": bound_ms / ms,
+                       "mfu_bf16_peak": flops / (ms * 1e-3) / PEAK_FLOPS["bfloat16"]})
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.randint(0, cfg.vocab_size, OPT_SHAPES[0], generator=gen, device="cuda")
+    with torch.inference_mode():
+        profile = profile_call(lambda: model(tokens, torch.ones_like(tokens, dtype=torch.float32),
+                                             torch.bfloat16))
+    del model
+
+    # full width, 2 layers: the card against the CPU in f32, bf16 against f32
+    small = dataclasses.replace(cfg, num_layers=OPT_PARITY_LAYERS)
+    sd = init_params(small, "cuda", torch.float32, gen)
+    enc = word_hash_encode(cfg.vocab_size)
+    texts = opt_texts()[0][0][:OPT_PARITY_TEXTS]
+    card = OPTRescorer(small, params=sd, encode=enc, device="cuda", max_len=OPT_MAX_LEN)
+    t0 = time.perf_counter()
+    host = OPTRescorer(small, params={k: v.cpu() for k, v in sd.items()}, encode=enc,
+                       device="cpu", max_len=OPT_MAX_LEN).score(texts)
+    cpu_s = time.perf_counter() - t0
+    f32 = card.score(texts)
+    bf16 = OPTRescorer(small, params={k: v.to(torch.bfloat16) for k, v in sd.items()},
+                       encode=enc, device="cuda", max_len=OPT_MAX_LEN,
+                       compute_dtype=torch.bfloat16).score(texts)
+    del card, sd
+    torch.cuda.empty_cache()
+    parity = {"layers": OPT_PARITY_LAYERS, "texts": len(texts),
+              "score_range": [min(f32), max(f32)],
+              "card_f32_vs_cpu_f32_max_abs": max_abs(f32, host), "f32_tol": OPT_F32_TOL,
+              "card_bf16_vs_f32_max_abs": max_abs(bf16, f32), "bf16_tol": OPT_BF16_TOL,
+              "cpu_score_s": cpu_s}
+    parity["ok"] = bool(parity["card_f32_vs_cpu_f32_max_abs"] <= OPT_F32_TOL
+                        and np.all(np.isfinite(bf16))
+                        and np.allclose(bf16, f32, **OPT_BF16_TOL))
+    fig = {"phase": "opt_forward", "config": "OPTConfig.opt_6_7b()",
+           "widths": {"layers": cfg.num_layers, "hidden": cfg.hidden_size,
+                      "ffn": cfg.ffn_dim, "heads": cfg.num_heads, "vocab": cfg.vocab_size},
+           "params": cfg.n_params, "weights_bytes_bf16": 2 * cfg.n_params,
+           "weights": "random N(0, 0.02), bf16, drawn on the card", "init_s": init_s,
+           "dtype": "bfloat16", "timing": "CUDA events, 8 forwards after 2 warm-up",
+           "shapes": shapes, "profile_32x32": profile, "max_memory_allocated": peak,
+           "memory_allocated_before": resident, "parity_2_layers": parity}
+    emit(fig)
+    return fig
+
+
+def timed_lists(resc, lists, **kw):
+    """Score each list once to warm, then each again on the host clock (the
+    fetch syncs); returns (seconds per list, the timed scores)."""
+    resc.score(lists[0], **kw)
+    t0 = time.perf_counter()
+    scores = [resc.score(cands, **kw) for cands in lists]
+    return (time.perf_counter() - t0) / len(lists), scores
+
+
+def phase_opt_rescore(params):
+    """OPTRescorer over bench_opt.py's 100-candidate lists at 6.7b, bf16:
+    packed and one row per candidate, then a 48-word context through the
+    prefix-KV path and by concatenation. Packed equals unpacked and prefix-KV
+    equals concatenated within the bf16 tolerance; every score is finite."""
+    import torch
+
+    from b2txt_tpu_torch.decode.opt_lm import OPTConfig, OPTRescorer, word_hash_encode
+
+    cfg = OPTConfig.opt_6_7b()
+    enc = word_hash_encode(cfg.vocab_size)
+    lists, context = opt_texts()
+
+    def rescorer(**kw):
+        return OPTRescorer(cfg, params=params, encode=enc, device="cuda",
+                           compute_dtype=torch.bfloat16, **kw)
+
+    packed = rescorer(max_len=OPT_MAX_LEN)
+    packed_s, p_scores = timed_lists(packed, lists)
+    again = [packed.score(cands) for cands in lists]
+    unpacked = rescorer(max_len=OPT_MAX_LEN, pack=False)
+    unpacked_s, u_scores = timed_lists(unpacked, lists)
+    prefix = rescorer(max_len=512, encode_cont=lambda t, n: enc(t, n + 1)[1:])
+    prefix_s, x_scores = timed_lists(prefix, lists, context=context)
+    concat_s, c_scores = timed_lists(rescorer(max_len=512),
+                                     [[context + " " + c for c in cands] for cands in lists])
+    profiles = {"packed": profile_call(lambda: packed.score(lists[0])),
+                "unpacked": profile_call(lambda: unpacked.score(lists[0]))}
+    every = [np.asarray(v) for v in (p_scores, u_scores, x_scores, c_scores)]
+    fig = {"phase": "opt_rescore", "config": "OPTConfig.opt_6_7b(), bf16",
+           "lists": OPT_LISTS, "nbest": OPT_NBEST, "encode": "word_hash_encode",
+           "tokens_per_list": float(np.mean([sum(len(enc(c, OPT_MAX_LEN)) for c in cands)
+                                             for cands in lists])),
+           "s_per_list_packed": packed_s, "s_per_list_unpacked": unpacked_s,
+           "packed_vs_unpacked_max_abs": max_abs(p_scores, u_scores), "tol": OPT_BF16_TOL,
+           "packed_repeat_max_abs": max_abs(p_scores, again),
+           "context_words": OPT_CONTEXT_WORDS,
+           "s_per_list_prefix_kv": prefix_s, "s_per_list_concatenated": concat_s,
+           "prefix_speedup": concat_s / prefix_s, "prefix_runs": prefix.prefix_runs,
+           "prefix_vs_concatenated_max_abs": max_abs(x_scores, c_scores),
+           "prefix_tol": OPT_PREFIX_TOL,
+           "score_range": [float(min(v.min() for v in every)),
+                           float(max(v.max() for v in every))],
+           "all_finite": bool(all(np.isfinite(v).all() for v in every)),
+           "clock": "host, around score() (it ends in the fetch)",
+           "profile_one_list": profiles}
+    fig["ok"] = bool(fig["all_finite"] and prefix.prefix_runs > 0
+                     and np.allclose(p_scores, u_scores, **OPT_BF16_TOL)
+                     and np.allclose(x_scores, c_scores, **OPT_PREFIX_TOL))
+    emit(fig)
+    return fig
+
+
+def phase_finalize_opt(world, params, counters):
+    """The full finalize on the connected world's first batch of 128 planted
+    requests: K1 → log-softmax → device searcher (on-card pool rescore) →
+    augment_nbest → the OPT-6.7b α-blend in DecoderService, per utterance and
+    grouped (``llm_group_candidates``). Grouped must give every request the
+    per-utterance sentence, or one whose blended total lies within the bf16
+    tolerance of it."""
+    import torch
+
+    from b2txt_tpu_torch.decode.opt_lm import OPTConfig, OPTRescorer, word_hash_encode
+    from b2txt_tpu_torch.evaluate.harness import _batched_inference_device
+    from b2txt_tpu_torch.serve import DecoderService
+
+    cfg = OPTConfig.opt_6_7b()
+    feats, sents = world["first_batch"]
+    dcfg = world["decode"].replace(**FINALIZE_KNOBS)
+    llm = OPTRescorer(cfg, params=params, encode=word_hash_encode(cfg.vocab_size),
+                      device="cuda", max_len=OPT_MAX_LEN, compute_dtype=torch.bfloat16)
+    service = DecoderService(world["lexicon"], world["lm"], dcfg,
+                             rescore_lm=world["lm_unpruned"], llm=llm, channel_order="model",
+                             searcher_backend="device", searcher=world["searcher"])
+    llm.score(sents[:8])     # the rescorer's first call (cuBLAS handles, pinned pool)
+
+    def run(group: int):
+        service.llm_group_candidates = group
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches, sizes, order, _ = _batched_inference_device(world["model"], feats,
+                                                             **world["infer"])
+        outs = service.decode_batched_utterances(batches, sizes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        finals = [None] * len(feats)
+        for i, o in zip(order, outs):
+            finals[i] = o
+        return finals, {"s": wall, "sentences_per_s": len(feats) / wall,
+                        "s_per_sentence": wall / len(feats),
+                        "launches": {n: f.launches for n, f in counters.items()},
+                        "exact": sum(o.sentence == s for o, s in zip(finals, sents)),
+                        "nbest_rows_mean": float(np.mean([len(o.nbest) for o in finals]))}
+
+    per, per_fig = run(0)
+    grouped, grouped_fig = run(LLM_GROUP)
+    # one per-utterance call: the first request's finalize n-best
+    first = [r[0] for r in per[0].nbest]
+    per_fig["llm_call_profile"] = {"candidates": len(first),
+                                   **profile_call(lambda: llm.score(first))}
+    differ, worst_margin, problems = [], 0.0, []
+    for i, (p, g) in enumerate(zip(per, grouped)):
+        if p.sentence == g.sentence:
+            continue
+        rows = {r[0]: r for r in p.nbest}
+        a, b = rows.get(p.sentence), rows.get(g.sentence)
+        if a is None or b is None:
+            problems.append(f"request {i}: grouped chose {g.sentence!r}, not in the "
+                            f"per-utterance n-best")
+            continue
+        margin = a[4] - b[4]
+        tol = 2 * dcfg.alpha * (OPT_BF16_TOL["atol"]
+                                + OPT_BF16_TOL["rtol"] * max(abs(a[3]), abs(b[3])))
+        differ.append({"request": i, "margin": margin, "tol": tol})
+        worst_margin = max(worst_margin, margin)
+        if margin > tol:
+            problems.append(f"request {i}: totals {a[4]} and {b[4]} differ by {margin} > {tol}")
+    llm_cols = [r[3] for o in per + grouped for r in o.nbest]
+    fig = {"phase": "finalize_opt", "requests": len(feats), "vocab": CONNECTED_VOCAB,
+           "decode": {**CONNECTED_DECODE, **FINALIZE_KNOBS},
+           "llm": "OPTConfig.opt_6_7b(), bf16, random weights, word_hash_encode",
+           "per_utterance": per_fig, "grouped": {"llm_group_candidates": LLM_GROUP,
+                                                 **grouped_fig},
+           "same_sentence": len(feats) - len(differ) - len(problems), "differ": differ,
+           "worst_margin": worst_margin,
+           "llm_scores_finite": bool(np.all(np.isfinite(llm_cols))),
+           "llm_scored": bool(any(v != 0.0 for v in llm_cols)),
+           "clock": "host, from the features to the finals, ending in a sync"}
+    n_layers = world["model"].n_layers
+    for label, f in (("per_utterance", per_fig), ("grouped", grouped_fig)):
+        if f["launches"]["gru_fwd"] != n_layers:
+            problems.append(f"{label}: gru_fwd launched {f['launches']['gru_fwd']} times, "
+                            f"expected {n_layers}")
+    if not (fig["llm_scores_finite"] and fig["llm_scored"]):
+        problems.append("the LLM column is not finite or was never filled")
+    fig["ok"] = not problems
+    fig["problems"] = problems
+    emit(fig)
+    return fig
+
+
+def phase_prefix_beam(world):
+    """The CTC prefix beam searcher (decode/prefix_beam_device.py) on the
+    card over 8 of the connected batch's posteriors (K = 16, first-beam 16),
+    held against the numpy oracle on the host: the same n-best prefixes
+    (near-tied neighbours may swap), scores within 1e-4."""
+    import torch
+
+    from b2txt_tpu_torch.decode import ctc_prefix_beam_search, ctc_prefix_beam_search_device
+    from b2txt_tpu_torch.evaluate.harness import _batched_inference_device
+
+    feats, _ = world["first_batch"]
+    (lp, lens), = _batched_inference_device(world["model"], feats[:PREFIX_UTTS],
+                                            **{**world["infer"], "batch_size": PREFIX_UTTS})[0]
+    host = lp.cpu().numpy()
+    device_s = oracle_s = 0.0
+    same_top1, top_equal, problems, worst = 0, 0, [], 0.0
+    for i in range(PREFIX_UTTS):
+        n = int(lens[i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ctc_prefix_beam_search_device(lp[i, :n], beam_width=PREFIX_K,
+                                            first_beam_size=PREFIX_K, nbest=PREFIX_K)
+        t1 = time.perf_counter()
+        want = ctc_prefix_beam_search(host[i, :n], beam_size=PREFIX_K)
+        t2 = time.perf_counter()
+        device_s += t1 - t0
+        oracle_s += t2 - t1
+        same_top1 += got[0][0] == want[0][0]
+        scores = {tuple(h): s for h, s in want}
+        for k, (h, s) in enumerate(got[:PREFIX_TOP]):
+            top_equal += h == want[k][0]
+            if tuple(h) not in scores:
+                problems.append(f"utterance {i}: rank {k} prefix not in the oracle's n-best")
+                continue
+            worst = max(worst, abs(s - scores[tuple(h)]))
+            if not (np.isclose(s, scores[tuple(h)], **PREFIX_TOL)
+                    and (h == want[k][0] or np.isclose(s, want[k][1], **PREFIX_TOL))):
+                problems.append(f"utterance {i}: rank {k} score {s} against the oracle's "
+                                f"{scores[tuple(h)]} (rank {k}: {want[k][1]})")
+    fig = {"phase": "prefix_beam", "utterances": PREFIX_UTTS, "beam_width": PREFIX_K,
+           "first_beam_size": PREFIX_K, "frames": int(lens[0]), "compared_top": PREFIX_TOP,
+           "same_top1": same_top1, "same_rank": top_equal,
+           "max_abs_score_diff": worst, "tol": PREFIX_TOL,
+           "device_s_per_utterance": device_s / PREFIX_UTTS,
+           "oracle_s_per_utterance": oracle_s / PREFIX_UTTS,
+           "clock": "host; the device search ends in its fetch", "problems": problems}
+    fig["ok"] = same_top1 == PREFIX_UTTS and not problems
+    emit(fig)
+    return fig
+
+
 def kernel_entry(name, route, source, replaces, launches, launches_per, k, shape_keys):
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "launches_per": launches_per,
@@ -1404,6 +1749,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from b2txt_tpu_torch.decode.opt_lm import OPTConfig, init_params
     from b2txt_tpu_torch.evaluate.harness import _batched_inference
     from b2txt_tpu_torch.models import gru_decoder
     from b2txt_tpu_torch.ops.gru import gru_layer_backward, gru_layer_forward, gru_layer_reference
@@ -1461,7 +1807,30 @@ def main() -> int:
     if not gather_fig["ok"] or gather_fig["launches"] == 0:
         problems.append(f"row_gather disagrees with its plain version or never launched: "
                         f"{gather_fig['grid_bit_exact']}, {gather_fig['launches']}")
+    prefix_fig = phase_prefix_beam(conn_world)
+    if not prefix_fig["ok"]:
+        problems.append(f"prefix_beam: {prefix_fig['same_top1']}/{PREFIX_UTTS} top-1 equal to "
+                        f"the oracle's; {prefix_fig['problems']}")
+    # OPT-6.7b's 13.3 GB of bf16 weights, drawn on the card from a seed; the
+    # connected world leaves the card after the finalize, the weights after
+    # the rescore phases
+    t0 = time.perf_counter()
+    opt_params = init_params(OPTConfig.opt_6_7b(), "cuda", torch.bfloat16,
+                             torch.Generator(device="cuda").manual_seed(OPT_SEED))
+    torch.cuda.synchronize()
+    opt_init_s = time.perf_counter() - t0
+    fin_fig = phase_finalize_opt(conn_world, opt_params, {"gru_fwd": gru_layer_forward})
+    if not fin_fig["ok"]:
+        problems.append(f"finalize_opt: {fin_fig['problems']}")
     del conn_world
+    fwd_fig = phase_opt_forward(opt_params, opt_init_s)
+    if not fwd_fig["parity_2_layers"]["ok"]:
+        problems.append(f"opt_forward: {fwd_fig['parity_2_layers']}")
+    resc_fig = phase_opt_rescore(opt_params)
+    if not resc_fig["ok"]:
+        problems.append(f"opt_rescore: {resc_fig}")
+    del opt_params
+    torch.cuda.empty_cache()
     train_fig = phase_train({"gru_fwd": gru_layer_forward, "gru_bwd": gru_layer_backward,
                              "fused_preprocess": fused_preprocess})
     problems += check_train(train_fig, cfg.model.n_layers)

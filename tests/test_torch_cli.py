@@ -24,6 +24,15 @@ SESSIONS = ["t15.2023.08.11", "t15.2023.08.13"]
 needs_gxx = pytest.mark.skipif(shutil.which("g++") is None, reason="g++ not available")
 
 
+@pytest.fixture(autouse=True)
+def _redis_module_restored(monkeypatch):
+    """The port's fake is ``redis`` only for the test that installs it: the
+    JAX package's Redis tests, which may run next in the same worker, read
+    the fake they installed when imported."""
+    for name in ("redis", "redis.exceptions"):
+        monkeypatch.setitem(sys.modules, name, sys.modules.get(name))
+
+
 @pytest.mark.parametrize("cli", CLIS)
 def test_cli_help_parses(cli):
     r = subprocess.run([sys.executable, "-m", f"b2txt_tpu_torch.scripts.{cli}", "--help"],
@@ -104,11 +113,10 @@ def _clean_logits(phoneme_ids, hot=8.0):
     return np.stack(rows)
 
 
-@pytest.mark.parametrize("searcher", [pytest.param("native", marks=needs_gxx), "python"])
-def test_language_model_standalone_cli(tmp_path, monkeypatch, searcher):
-    """main() in a thread against the fake redis: argparse → ARPA/lexicon
-    load → DecoderService → RedisDecoderServer.run; one planted utterance
-    over the wire protocol."""
+def _serve_one(tmp_path, monkeypatch, argv):
+    """main(argv + the LM directory) in a thread against the fake redis:
+    argparse → ARPA/lexicon load → DecoderService → RedisDecoderServer.run;
+    one planted utterance over the wire protocol. Returns (service, final)."""
     from b2txt_tpu_torch.lm import Lexicon, NGramLM
     from b2txt_tpu_torch.scripts import language_model_standalone
     from b2txt_tpu_torch.serve import fakeredis
@@ -133,8 +141,8 @@ def test_language_model_standalone_cli(tmp_path, monkeypatch, searcher):
         return orig_run(self, *a, **k)
 
     monkeypatch.setattr(RedisDecoderServer, "run", run_capture)
-    argv = ["--lm_path", lm_dir, "--searcher", searcher, "--acoustic_scale", "0.5",
-            "--blank_penalty", "1.0", "--nbest", "5", "--beam_width", "32", "--beam", "0.0"]
+    argv = ["--lm_path", lm_dir, "--acoustic_scale", "0.5", "--blank_penalty", "1.0",
+            "--nbest", "5", "--beam_width", "32", "--beam", "0.0", *argv]
     thread = threading.Thread(target=language_model_standalone.main, args=(argv,), daemon=True)
     thread.start()
     deadline = time.time() + 60
@@ -144,21 +152,70 @@ def test_language_model_standalone_cli(tmp_path, monkeypatch, searcher):
     time.sleep(0.2)  # let the loop connect and set stream cursors
     assert thread.is_alive()
     try:
-        assert captured["server"].service.searcher_backend == searcher
         lm = NGramLM.from_arpa(os.path.join(lm_dir, "lm.arpa"))
         lexicon = Lexicon.from_file(os.path.join(lm_dir, "lexicon.txt"), vocab=lm.vocab)
         client = RemoteLMClient()
         client.reset()
-        sent = "the cat sat on the mat"
-        logits = rearrange_speech_logits(_clean_logits(lexicon.sentence_to_phonemes(sent)))
+        logits = rearrange_speech_logits(_clean_logits(lexicon.sentence_to_phonemes(SENT)))
         assert client.send_logits(logits)
         final = client.finalize()
     finally:
         captured["server"].stop()
         thread.join(timeout=10)
     assert not thread.is_alive()
-    assert final.sentence == sent
+    return captured["server"].service, final
+
+
+SENT = "the cat sat on the mat"
+
+
+@pytest.mark.parametrize("searcher", [pytest.param("native", marks=needs_gxx), "python"])
+def test_language_model_standalone_cli(tmp_path, monkeypatch, searcher):
+    """The server with each host searcher."""
+    service, final = _serve_one(tmp_path, monkeypatch, ["--searcher", searcher])
+    assert service.searcher_backend == searcher
+    assert final.sentence == SENT
     assert final.nbest and len(final.nbest[0]) == 5
+
+
+@pytest.mark.parametrize("weights", ["random_init", "opt_weights"])
+def test_language_model_standalone_cli_with_the_ports_opt(tmp_path, monkeypatch, weights):
+    """--do_opt --opt_backend port --opt_size tiny on the CPU: bf16 weights
+    drawn on the device, or read from an HF-layout state dict written with
+    torch.save; the request comes back rescored by the port's OPT."""
+    import torch
+
+    from b2txt_tpu_torch.decode.opt_lm import OPTConfig, OPTRescorer, init_params
+
+    argv = ["--searcher", "python", "--device", "cpu", "--do_opt", "--opt_backend", "port",
+            "--opt_size", "tiny"]
+    sd = None
+    if weights == "random_init":
+        argv.append("--opt_random_init")
+    else:
+        sd = init_params(OPTConfig.tiny(), "cpu", torch.float32, torch.Generator().manual_seed(3))
+        path = str(tmp_path / "opt.pt")
+        torch.save({k: v for k, v in sd.items() if k != "lm_head.weight"}, path)
+        argv += ["--opt_weights", path]
+    service, final = _serve_one(tmp_path, monkeypatch, argv)
+    llm = service.llm
+    assert isinstance(llm, OPTRescorer) and llm.compute_dtype == torch.bfloat16
+    assert llm.device == torch.device("cpu") and service.config.do_opt
+    if sd is not None:
+        for k, v in llm.model.state_dict().items():
+            assert v.dtype == torch.bfloat16 and torch.equal(v, sd[k].to(torch.bfloat16)), k
+    assert final.sentence == SENT
+    assert any(row[3] != 0.0 for row in final.nbest)     # the LLM's column
+
+
+def test_language_model_standalone_cli_port_opt_needs_weights(tmp_path, capsys):
+    from b2txt_tpu_torch.scripts import language_model_standalone
+
+    lm_dir = _lm_dir(tmp_path, [["the", "cat"]] * 3, {"the": ["DH", "AH0"], "cat": ["K", "AE1", "T"]})
+    with pytest.raises(SystemExit):
+        language_model_standalone.main(["--lm_path", lm_dir, "--device", "cpu", "--do_opt",
+                                        "--opt_backend", "port", "--opt_size", "tiny"])
+    assert "--opt_weights or --opt_random_init" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("layout", ["port", "jax", "reference_torch"])

@@ -13,7 +13,7 @@ COPIES = [
     "data/sampler.py", "utils/logging.py",
     "runtime/decoder.cc", "runtime/ngram_train.cc", "data/real_assets.py", "utils/lts.py",
     "utils/g2p.py", "evaluate/golden.py", "serve/fakeredis.py", "serve/redis_adapter.py",
-    "serve/redis_client.py",
+    "serve/redis_client.py", "utils/bpe.py", "decode/prefix_beam.py", "lm/corpus.py",
 ]
 
 

@@ -22,6 +22,8 @@ sys.modules["triton"] = None       # no module imports triton; h5py, PyYAML and 
 sys.modules["h5py"] = None         # load only inside the functions that need them
 sys.modules["yaml"] = None
 sys.modules["redis"] = None
+sys.modules["regex"] = None        # the card host has neither: utils/bpe.py and
+sys.modules["transformers"] = None # decode/rescore.py import them inside functions
 import b2txt_tpu_torch
 names = ["b2txt_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(b2txt_tpu_torch.__path__, "b2txt_tpu_torch.")
@@ -57,7 +59,10 @@ def test_every_module_imports_without_jax():
                 "b2txt_tpu_torch.utils.g2p", "b2txt_tpu_torch.utils.lts",
                 "b2txt_tpu_torch.data.real_assets", "b2txt_tpu_torch.evaluate.golden",
                 "b2txt_tpu_torch.scripts.evaluate_model",
-                "b2txt_tpu_torch.scripts.language_model_standalone"}
+                "b2txt_tpu_torch.scripts.language_model_standalone",
+                "b2txt_tpu_torch.decode.opt_lm", "b2txt_tpu_torch.decode.device_lm",
+                "b2txt_tpu_torch.decode.prefix_beam", "b2txt_tpu_torch.decode.prefix_beam_device",
+                "b2txt_tpu_torch.lm.corpus", "b2txt_tpu_torch.utils.bpe"}
     assert expected <= set(report["names"])
 
 
@@ -89,4 +94,11 @@ def test_entry_points_want_the_card(monkeypatch):
     cfg.n_input_features, cfg.n_units, cfg.n_layers = 8, 8, 1
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GRUDecoder(cfg, n_days=2, n_classes=41)
+    from b2txt_tpu_torch.decode import DeviceCausalLMRescorer
+    from b2txt_tpu_torch.decode.opt_lm import OPTConfig, OPTRescorer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OPTRescorer(OPTConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceCausalLMRescorer()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -8,6 +8,7 @@ take whatever ``import redis`` finds when they are built, and
 ``reset_all()`` runs before every server so no two share streams."""
 
 import shutil
+import sys
 import threading
 import time
 
@@ -36,6 +37,15 @@ LEX = {
 }
 CORPUS = ["the cat sat on the mat".split(), "the cat sat".split()] * 4
 KNOBS = dict(acoustic_scale=0.5, blank_penalty=1.0, nbest=5, beam_width=32, beam=0.0)
+
+
+@pytest.fixture(autouse=True)
+def _redis_module_restored(monkeypatch):
+    """The port's fake is ``redis`` only for the test that installs it: the
+    JAX package's Redis tests, which may run next in the same worker, read
+    the fake they installed when imported."""
+    for name in ("redis", "redis.exceptions"):
+        monkeypatch.setitem(sys.modules, name, sys.modules.get(name))
 
 
 def make_service(backend="python") -> DecoderService:

@@ -53,6 +53,7 @@ import torch
 from ..lm.device_ngram import DeviceNGram, hash_ctx, hash_extend
 from ..lm.lexicon import Lexicon
 from ..lm.ngram import NGramLM
+from ..ops.segment import sorted_segment_sum
 from ..utils.config import DecodeConfig
 from ..utils.device import resolve_device
 from ..utils.device import upload as _upload
@@ -610,8 +611,7 @@ class DeviceLexiconBeamSearch:
         if sum_mode:
             m = merged[:, :2]
             m_safe = m.clamp(min=NEG)
-            tot = torch.zeros((B * N, 2), dtype=torch.float32, device=dev)
-            tot.index_add_(0, seg, torch.exp(sc[:, :2] - m_safe[seg]))
+            tot = sorted_segment_sum(torch.exp(sc[:, :2] - m_safe[seg]), seg, B * N)
             lse = (m_safe + torch.log(tot)).masked_fill(m <= NEG, NEG)
             merged = torch.cat([lse, merged[:, 2:]], 1)
             combined = _logaddexp(merged[:, 0], merged[:, 1])

@@ -34,9 +34,10 @@ What differs from the JAX module, and why:
   code forms them from bf16 means in bf16. Attention is explicit products
   with the mask, as the JAX code has it, with the compute dtype's own
   finite minimum as the mask fill and the softmax in float32.
-- ``jax.ops.segment_sum`` is ``index_add_`` into float32 bins (bin 0 the
-  discard bin). On the card, float atomics add in a varying order, so two
-  runs may differ in the last bits of a score.
+- ``jax.ops.segment_sum`` is a stable sort by segment id and one
+  fixed-order sum per segment into float32 bins (bin 0 the discard bin,
+  ``ops/segment.py``): two runs on the card give the same bits, as one XLA
+  scatter does on the TPU (``index_add_``'s float atomics would not).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.segment import segment_sum
 from ..utils.device import resolve_device, upload
 
 POS_OFFSET = 2  # OPT's learned-position offset (OPTLearnedPositionalEmbedding)
@@ -368,8 +370,7 @@ def _next_token_lp(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _segment_sum(data: torch.Tensor, seg: torch.Tensor, n_segments: int) -> torch.Tensor:
-    out = torch.zeros(n_segments, dtype=torch.float32, device=data.device)
-    return out.index_add_(0, seg.reshape(-1).long(), data.reshape(-1).float())
+    return segment_sum(data.reshape(-1).float(), seg.reshape(-1).long(), n_segments)
 
 
 def score_tokens_fn(compute_dtype: torch.dtype = torch.float32):

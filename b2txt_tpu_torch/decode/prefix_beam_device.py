@@ -21,8 +21,9 @@ What differs from the JAX module, and why:
   order is the unsigned order of (h1, h2); candidates with equal hashes
   keep their order, as in the stable ``lax.sort``.
 - ``lax.associative_scan``'s pairwise merge is one max-shifted
-  log-sum-exp per segment (``index_add_``): it rounds differently, so
-  scores agree with the JAX package's within 1e-4, not bit for bit.
+  log-sum-exp per segment (a fixed-order segment sum, so two runs on the
+  card give the same bits): it rounds differently, so scores agree with
+  the JAX package's within 1e-4, not bit for bit.
 - ``torch.topk`` breaks ties differently from ``lax.top_k``: beams at the
   NEG score floor may sit in other slots; they never outrank a real prefix.
 - ``lax.scan`` over T is a Python loop over frames that issues device work
@@ -38,6 +39,7 @@ from typing import List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..ops.segment import sorted_segment_sum
 from ..utils.device import resolve_device
 
 NEG = -1.0e30
@@ -62,12 +64,11 @@ def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _segment_logsumexp(values: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     """log Σ exp over each segment of ``values`` (segment ids ``seg`` in
-    [0, n)); NEG where every value of a segment is at or below NEG."""
+    [0, n), sorted); NEG where every value of a segment is at or below NEG."""
     m = torch.full((n,), -math.inf, dtype=values.dtype, device=values.device)
     m.scatter_reduce_(0, seg, values, "amax")
     m_safe = m.clamp(min=NEG)
-    tot = torch.zeros((n,), dtype=values.dtype, device=values.device)
-    tot.index_add_(0, seg, torch.exp(values - m_safe[seg]))
+    tot = sorted_segment_sum(torch.exp(values - m_safe[seg]), seg, n)
     return (m_safe + torch.log(tot)).masked_fill(m <= NEG, NEG)
 
 

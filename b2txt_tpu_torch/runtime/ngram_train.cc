@@ -78,6 +78,10 @@ struct Trainer {
   // context aggregates
   std::vector<std::unordered_map<uint64_t, int64_t>> ctx_totals;   // per order
   std::vector<std::unordered_map<uint64_t, int64_t>> type_counts;  // per order
+  // the unigram normalizers do not depend on the word: summed once in
+  // Estimate, not in every UnigramP call (a sum over the vocabulary per word
+  // is quadratic: ~50 s at 125k words)
+  int64_t uni_total = 0, uni_types = 0;
 
   int Intern(const std::string& w) {
     auto it = word_ids.find(w);
@@ -191,23 +195,30 @@ struct Trainer {
     return out;
   }
 
+  void SumUnigramNormalizers() {
+    uni_total = uni_types = 0;
+    if (order == 1) {
+      for (size_t i = 0; i < counts[0].size(); ++i)
+        if (counts[0].Gram(static_cast<int32_t>(i))[0] != bos)
+          uni_total += counts[0].count[i];
+      return;
+    }
+    for (size_t i = 0; i < cont[0].size(); ++i) {
+      uni_total += cont[0].count[i];
+      uni_types++;
+    }
+  }
+
   double UnigramP(int w, const std::vector<int>& vw) const {
     int V = static_cast<int>(vw.size());
     if (order == 1) {
-      int64_t total = 0;
-      for (size_t i = 0; i < counts[0].size(); ++i)
-        if (counts[0].Gram(static_cast<int32_t>(i))[0] != bos)
-          total += counts[0].count[i];
+      int64_t total = uni_total;
       int32_t idx = counts[0].Find(&w);
       int64_t c = idx >= 0 ? counts[0].count[idx] : 0;
       return (c + 0.5) / (total + 0.5 * V);
     }
-    int64_t total = 0;
-    int64_t nt = 0;
-    for (size_t i = 0; i < cont[0].size(); ++i) {
-      total += cont[0].count[i];
-      nt++;
-    }
+    int64_t total = uni_total;
+    int64_t nt = uni_types;
     int32_t idx = cont[0].Find(&w);
     int64_t c = idx >= 0 ? cont[0].count[idx] : 0;
     double disc = std::max(double(c) - discount, 0.0) / std::max<int64_t>(total, 1);
@@ -288,6 +299,7 @@ struct Trainer {
       std::swap(counts[0].ids, fresh.ids);
       std::swap(counts[0].count, fresh.count);
     }
+    SumUnigramNormalizers();
 
     // probabilities
     for (int n = 1; n <= order; ++n) {

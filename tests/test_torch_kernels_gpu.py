@@ -354,3 +354,45 @@ def test_device_searcher_on_card_matches_cpu(sum_mode):
         assert b and [r.sentence for r in a] == [r.sentence for r in b]
         np.testing.assert_allclose([[r.ac_score, r.lm_score] for r in a],
                                    [[r.ac_score, r.lm_score] for r in b], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_opt_scores_repeat_bit_for_bit(dtype):
+    """Two ``score_packed_fn`` calls on the same packed rows give the same
+    bits: the per-segment sums run in one fixed order (``ops/segment.py``),
+    where ``index_add_``'s float atomics added in a varying one."""
+    from b2txt_tpu_torch.decode.opt_lm import OPTConfig, OPTRescorer, score_packed_fn
+
+    _need_card()
+    cfg = OPTConfig(vocab_size=1000, hidden_size=64, ffn_dim=128, num_layers=2, num_heads=4,
+                    max_position_embeddings=128)
+    resc = OPTRescorer(cfg, encode=lambda t, n: [], device="cuda", compute_dtype=dtype)
+    rng = np.random.default_rng(0)
+    ids = [rng.integers(4, cfg.vocab_size, int(rng.integers(3, 24))).tolist() for _ in range(100)]
+    tokens, seg, pos, n_segments = resc._pack_arrays(ids)
+    args = [torch.from_numpy(a).cuda() for a in (tokens, seg, pos)]
+    fn = score_packed_fn(n_segments, dtype)
+    with torch.inference_mode():
+        runs = [fn(resc.model, *args) for _ in range(3)]
+    for sums, cnt in runs[1:]:
+        assert torch.equal(sums, runs[0][0]) and torch.equal(cnt, runs[0][1])
+    assert torch.isfinite(runs[0][0]).all()
+    np.testing.assert_array_equal(runs[0][1][1:].cpu().numpy(), [len(s) for s in ids])
+
+
+@pytest.mark.gpu
+def test_segment_sums_repeat_and_match_float64():
+    """The fixed-order segment sum on the card: the same bits on every call,
+    within float32 rounding of a float64 sum, empty segments 0."""
+    from b2txt_tpu_torch.ops.segment import segment_sum
+
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    seg = torch.randint(0, 700, (200_000,), device="cuda", generator=gen)
+    values = torch.randn(200_000, device="cuda", generator=gen) * 10
+    runs = [segment_sum(values, seg, 1000) for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+    ref = torch.zeros(1000, dtype=torch.float64, device="cuda").index_add_(0, seg, values.double())
+    torch.testing.assert_close(runs[0].double(), ref, rtol=1e-5, atol=1e-3)
+    assert torch.equal(runs[0][700:], torch.zeros(300, device="cuda"))

@@ -192,7 +192,7 @@ def test_native_service_dumps_the_in_memory_world(artifacts):
     assert a.nbest == b.nbest
 
 
-@pytest.mark.parametrize("order", [2, 3])
+@pytest.mark.parametrize("order", [1, 2, 3])
 def test_native_ngram_trainer_matches_python(tmp_path, order):
     """C++ KN trainer == the python trainer (same estimator, exact scores),
     and the port's ARPA is the JAX package's native ARPA byte for byte."""

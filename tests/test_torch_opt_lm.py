@@ -185,3 +185,19 @@ def test_text_helpers_are_the_jax_packages():
         J.word_hash_encode(50272)(t, 8) for t in words]
     ids = [[1] * n for n in (5, 30, 12, 64, 1, 33, 7)]
     assert P.pack_sequences(ids, 64) == J.pack_sequences(ids, 64)
+
+
+def test_segment_sum_matches_a_float64_sum():
+    """The packed scores' segment sum (ids in any order; sorted for the
+    merges of the searchers) against a float64 sum: empty segments 0."""
+    from b2txt_tpu_torch.ops.segment import segment_sum, sorted_segment_sum
+
+    gen = torch.Generator().manual_seed(0)
+    seg = torch.randint(0, 70, (5000,), generator=gen)
+    values = torch.randn(5000, 2, generator=gen)
+    ref = torch.zeros(100, 2, dtype=torch.float64).index_add_(0, seg, values.double())
+    got = segment_sum(values, seg, 100)
+    torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got[70:], torch.zeros(30, 2))
+    seg_s, perm = torch.sort(seg, stable=True)
+    assert torch.equal(sorted_segment_sum(values[perm], seg_s, 100), got)

@@ -47,6 +47,18 @@ then:
   CPU (``opt_forward``), and rescores 100-candidate n-best lists packed,
   unpacked, and with a 48-word context through the prefix-KV path and by
   concatenation (``opt_rescore``);
+- runs the soft-posterior quality ladder on the connected world
+  (``quality_ladder``: ``scripts.quality_ladder.run_ladder`` at head gains
+  15-45, 128 planted utterances in batches of 64, the native and the device
+  searchers on identical posteriors, the native lattice n-best on two gains),
+  before the OPT weights are drawn;
+- runs the user-facing examples (``examples``, after the OPT phases): the
+  streaming demo at full width (carried-state hops, K1 at T = 1, against the
+  offline forward in f32 and bf16; Part B through the python and the device
+  searchers), the quickstart (training, the val split's decode, the CSV) and
+  the figures demo's data half at full width on sessions in memory, the
+  conversation demo's picks and its context scoring on the OPT-6.7b
+  weights, and the host-only lattice and spelling demos;
 - trains the full-width model (``TrainConfig()`` defaults: bf16, dropout,
   augmentation, batch 64 over 4 days) for 20 steps with the augmentations in
   PyTorch and 5 with the fused kernel, on synthetic trials in memory, and
@@ -171,6 +183,35 @@ CLI_DEVICE_UTTS, CLI_SESSIONS, CLI_TRIALS = 16, 45, 8
 # connected decode
 CLI_DECODE_ARGS = ["--acoustic_scale", "0.5", "--blank_penalty", "90", "--beam_width", "48"]
 CLI_RANGE = "cli_stage1_batch"
+# the examples at full width (TrainConfig()'s model): streaming hops after a
+# warm-up; the quickstart and figures trainings cut from 300 and 120 steps
+STREAM_WARMUP, STREAM_HOPS = 5, 60
+# hops under the profiler, after a 50 ms settle: a trace of one hop started
+# right at the window's opening missed its first kernels (4 of 5 K1 launches
+# in one run)
+PROFILED_HOPS, PROFILE_SETTLE_S = 10, 0.05
+# streaming against the offline forward in bf16: two bf16 computations of one
+# function. The offline input projection is one (1, P, ·) product, the
+# streamed one P products of (1, 1, ·), and each rounds to bf16, so the two
+# may differ by a bf16 rounding before any recurrence step. The carried state
+# is rounded alike on both paths (h_T in bf16, fed back as is). Held to twice
+# the bf16 policy's own error: |offline bf16 - offline f32| on the same bins
+STREAM_BF16_FACTOR = 2.0
+QUICKSTART_STEPS, FIGURES_STEPS = 20, 20
+# what the two demos' make_config keeps at full width (their own training
+# knobs; the optimizer epsilon is TrainConfig()'s 0.1)
+DEMO_KNOBS = "dropout 0, batch 8 over 2 days, use_amp off (f32), lr warm-up 10 steps"
+# the lattice and spelling demos at their defaults, as the CPU gives them:
+# host-only (the native searcher, numpy's generator), so any host gives these
+LATTICE_DEMO_RESULT = {"pool": {"top1_wer": 0.0, "mean_depth": 1.2},
+                       "lattice": {"top1_wer": 0.0, "mean_depth": 34.3}}
+SPELLING_DEMO_RESULT = 20
+# the quality ladder on the connected world (scripts/quality_ladder.py's
+# defaults): 128 planted utterances of 520 bins, device batch 64, blank bias
+# 12; the lattice n-best (width 512) on two gains and the first 32 utterances
+LADDER_GAINS = (15.0, 20.0, 25.0, 35.0, 45.0)
+LADDER_BLANK_BIAS, LADDER_UTTS, LADDER_BATCH = 12.0, 128, 64
+LADDER_LATTICE_GAINS, LADDER_LATTICE_UTTS, LADDER_LATTICE_WIDTH = (25.0, 45.0), 32, 512
 
 
 def emit(obj) -> None:
@@ -191,6 +232,15 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def counted_launches(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
 
 
 def gru_bound(B: int, T: int, H: int, dtype: str):
@@ -678,8 +728,7 @@ def phase_train(counters):
         cfg.use_fused_preprocess = fused
         todo = batches[:steps] if not fused else batches[TRAIN_STEPS:]
         losses, step_ms = [], []
-        for fn in counters.values():
-            fn.launches = 0
+        zero(counters)
         for batch in todo:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -687,7 +736,7 @@ def phase_train(counters):
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t1) * 1e3)
             losses.append(float(loss))
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = counted_launches(counters)
         timed = step_ms[TIMED_FROM:] if len(step_ms) > TIMED_FROM else step_ms[1:]
         runs[label] = {"steps": steps, "losses": losses, "launches": launches,
                        "step_ms": step_ms, "ms_per_step": sum(timed) / len(timed),
@@ -804,14 +853,13 @@ def phase_serve(cfg, device: str, compute_dtype, n_requests: int, bins: int,
     # time_bucket=8 divides 520: requests are not padded, the GRU runs 125 frames
     infer = dict(day_idx=0, cfg=cfg, compute_dtype=compute_dtype, batch_size=32, time_bucket=8)
 
-    for fn in counters.values():
-        fn.launches = 0
+    zero(counters)
     t0 = time.perf_counter()
     logits = _batched_inference(model, feats_list, **infer)
     t1 = time.perf_counter()
     outs = service.decode_utterances(logits)
     t2 = time.perf_counter()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = counted_launches(counters)
 
     n_batches = (n_requests + infer["batch_size"] - 1) // infer["batch_size"]
     exact = sum(o.sentence == s for o, (s, _) in zip(outs, requests))
@@ -823,15 +871,18 @@ def phase_serve(cfg, device: str, compute_dtype, n_requests: int, bins: int,
     return fig, model, feats_list, infer, logits, outs, requests, (lexicon, lm)
 
 
-def profile_call(run, top: int = 6):
+def profile_call(run, top: int = 6, settle_s: float = 0.0):
     """One call (a stage-1 batch, a training step, a decode batch) under
     torch.profiler: device time and launches by kernel name, their sums, and
-    the host wall time around the call."""
+    the host wall time around the call. ``settle_s``: a host wait inside the
+    window before the call, for calls whose first kernels come within
+    microseconds of the window's start (the trace can miss them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(settle_s)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1001,10 +1052,9 @@ def phase_serve_connected(cfg, device: str, counters):
         return outs, order, batches, sizes, t1 - t0, time.perf_counter() - t1
 
     pipeline(feats_list[:CONNECTED_BATCH])   # warm-up: one batch
-    for fn in counters.values():
-        fn.launches = 0
+    zero(counters)
     outs, order, batches, sizes, stage1_s, decode_s = pipeline(feats_list)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = counted_launches(counters)
     n_batches = len(batches)
 
     hyp = [None] * len(requests)
@@ -1221,14 +1271,12 @@ def phase_evaluate(cfg, world, counters):
                                     searcher_backend="device", searcher=world["searcher"])
 
     def run(fn):
-        for f in counters.values():
-            f.launches = 0
+        zero(counters)
         t0 = time.perf_counter()
         out = fn()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        return out, {"s": time.perf_counter() - t0,
-                     "launches": {n: f.launches for n, f in counters.items()}}
+        return out, {"s": time.perf_counter() - t0, "launches": counted_launches(counters)}
 
     modes = {}
     a, modes["native_host"] = run(lambda: evaluate_session_data(
@@ -1328,13 +1376,12 @@ def phase_cli(cfg, world, counters):
     device = world["model"].h0.device
 
     def counted(fn):
-        for f in counters.values():
-            f.launches = 0
+        zero(counters)
         t0 = time.perf_counter()
         out = fn()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        return out, time.perf_counter() - t0, {n: f.launches for n, f in counters.items()}
+        return out, time.perf_counter() - t0, counted_launches(counters)
 
     fig = {"phase": "cli", "vocab": CONNECTED_VOCAB, "launches": {}}
     host_lp, sents = world["posteriors"]
@@ -1818,8 +1865,7 @@ def phase_finalize_opt(world, params, counters):
 
     def run(group: int):
         service.llm_group_candidates = group
-        for fn in counters.values():
-            fn.launches = 0
+        zero(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         batches, sizes, order, _ = _batched_inference_device(world["model"], feats,
@@ -1832,7 +1878,7 @@ def phase_finalize_opt(world, params, counters):
             finals[i] = o
         return finals, {"s": wall, "sentences_per_s": len(feats) / wall,
                         "s_per_sentence": wall / len(feats),
-                        "launches": {n: f.launches for n, f in counters.items()},
+                        "launches": counted_launches(counters),
                         "exact": sum(o.sentence == s for o, s in zip(finals, sents)),
                         "nbest_rows_mean": float(np.mean([len(o.nbest) for o in finals]))}
 
@@ -1941,6 +1987,324 @@ def phase_prefix_beam(world):
     return fig
 
 
+def phase_examples(opt_params, counters):
+    """The port's examples (``b2txt_tpu_torch.examples``) through their
+    functions, at full width (``TrainConfig()``'s model) where they run a
+    model: (a) streaming: ``STREAM_WARMUP + STREAM_HOPS`` hops of the
+    carried-state forward in f32 and bf16 against the offline forward, each
+    hop ending in the host's read of its frame, and one hop profiled; then
+    Part B through the python and the device searchers; (b) the quickstart:
+    ``QUICKSTART_STEPS`` training steps on synthetic sessions held in memory
+    at 512 features, the val split decoded with the python searcher, the
+    CSV; (c) the conversation demo's picks, and its context scoring on
+    OPT-6.7b's random bf16 weights (prefix-KV against concatenated); (d) the
+    lattice and spelling demos at their defaults (host-only); (e) the
+    figures demo's data half, ``FIGURES_STEPS`` steps. Launches are counted
+    from 0 in each part that runs a model."""
+    import csv
+    import tempfile
+
+    import torch
+
+    from b2txt_tpu_torch.decode.opt_lm import OPTConfig
+    from b2txt_tpu_torch.examples import (conversation_demo, figures_demo, lattice_demo,
+                                          quickstart, spelling_demo, streaming_demo)
+    from b2txt_tpu_torch.models.gru_decoder import GRUDecoder
+    from b2txt_tpu_torch.utils.config import TrainConfig
+
+    problems = []
+    t_phase = time.perf_counter()
+    cfg = TrainConfig()
+    fig = {"phase": "examples", "model": "TrainConfig().model: 512 features, 5x768 GRU, "
+           "patch 14/4"}
+
+    # (a) streaming, full width, GRUDecoder's own init
+    model = GRUDecoder(cfg.model, 45, 41, device="cuda",
+                       generator=torch.Generator().manual_seed(SEED))
+    hops = STREAM_WARMUP + STREAM_HOPS
+    stream = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        zero(counters)
+        s = streaming_demo.stream_gru(model, dtype, hops=hops, device="cuda", verbose=False)
+        launches = counted_launches(counters)
+        timed = np.asarray(s["hop_ms"][STREAM_WARMUP:])
+        stream[name] = {"hops": len(s["hop_ms"]), "timed_hops": len(timed),
+                        "max_abs_err": s["max_abs_err"],
+                        "median_hop_ms": float(np.median(timed)),
+                        "p90_hop_ms": float(np.percentile(timed, 90)),
+                        "mean_hop_ms": float(timed.mean()),
+                        "gru_fwd_launches": launches["gru_fwd"],
+                        # the offline forward adds one launch per layer
+                        "gru_fwd_per_hop": (launches["gru_fwd"] - cfg.model.n_layers) / hops,
+                        "finite": bool(np.isfinite(s["streamed"]).all()),
+                        "offline": s["offline"]}
+    policy = float(np.abs(stream["bfloat16"]["offline"] - stream["float32"]["offline"]).max())
+    stream["bfloat16"]["tol"] = STREAM_BF16_FACTOR * policy
+    stream["bfloat16"]["bf16_policy_err"] = policy
+    stream["float32"]["tol"] = streaming_demo.STREAM_TOL_F32
+    for name, st in stream.items():
+        st.pop("offline")
+        if not (st["finite"] and st["max_abs_err"] <= st["tol"]):
+            problems.append(f"streaming {name}: max |streaming - offline| {st['max_abs_err']} "
+                            f"> {st['tol']}")
+        if st["gru_fwd_per_hop"] != cfg.model.n_layers:
+            problems.append(f"streaming {name}: {st['gru_fwd_per_hop']} K1 launches a hop")
+    # hops of each dtype under the profiler: bf16 adds the per-call casts of
+    # the weights to bf16 (GRUDecoder.forward casts on every call)
+    day = torch.tensor([1], device="cuda")
+    window = torch.randn((cfg.model.patch_size, cfg.model.n_input_features), device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        hop = streaming_demo.make_hop(model, day, dtype)
+        h = streaming_demo.initial_state(model, dtype)
+        hop(h, window)
+        prof = profile_call(lambda: [hop(h, window)[0].cpu() for _ in range(PROFILED_HOPS)],
+                            top=16, settle_s=PROFILE_SETTLE_S)
+        calls = {r["name"]: r["calls"] for r in prof["top"]}
+        prof.update({
+            "hops": PROFILED_HOPS,
+            "launches_per_hop": prof["kernel_launches"] / PROFILED_HOPS,
+            "device_ms_per_hop": prof["device_ms"] / PROFILED_HOPS,
+            # the trace is whole when it holds every K1 launch the wrapper counted
+            "gru_fwd_per_hop_in_trace": sum(n for k, n in calls.items() if "gru_fwd_kernel" in k)
+            / PROFILED_HOPS,
+            "bf16_cast_launches_per_hop": sum(n for k, n in calls.items()
+                                              if "bfloat16_copy" in k) / PROFILED_HOPS})
+        stream[str(dtype).replace("torch.", "")]["hop_profile"] = prof
+    stream["clock"] = "host, per hop, ending in the host's read of the frame"
+    partb = {}
+    for backend in ("python", "device"):
+        t0 = time.perf_counter()
+        partb[backend] = streaming_demo.stream_decode(backend=backend, device="cuda",
+                                                      verbose=False)
+        partb[backend]["s"] = time.perf_counter() - t0
+    py, dev = partb["python"], partb["device"]
+    same_partials = py["partials"] == dev["partials"]
+    same_final = (py["final"].sentence == dev["final"].sentence == py["sentence"]
+                  and [r[0] for r in py["final"].nbest] == [r[0] for r in dev["final"].nbest]
+                  and np.allclose([r[1:] for r in py["final"].nbest],
+                                  [r[1:] for r in dev["final"].nbest],
+                                  rtol=SEARCH_TOL, atol=SEARCH_TOL))
+    stream["part_b"] = {"chunks": len(py["partials"]), "partials": dev["partials"],
+                        "final": dev["final"].sentence, "same_partials": same_partials,
+                        "same_final": same_final, "s": {k: v["s"] for k, v in partb.items()}}
+    if not (same_partials and same_final):
+        problems.append(f"streaming part B: python and device searchers differ: "
+                        f"{py['partials']} / {dev['partials']}")
+    fig["streaming"] = stream
+    del model
+
+    # (b) the quickstart at full width, sessions in memory (no h5py on the host)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quickstart_") as root:
+        qcfg = quickstart.make_config(root, QUICKSTART_STEPS, model=TrainConfig().model)
+        qcfg.save_best_checkpoint = qcfg.save_val_metrics = False   # args.yaml needs PyYAML
+        train_trials, val_trials, columns = quickstart.memory_data(neural_dim=512)
+        zero(counters)
+        t0 = time.perf_counter()
+        trainer, stats = quickstart.train(qcfg, "cuda", train_trials, val_trials)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = counted_launches(counters)
+        zero(counters)
+        t0 = time.perf_counter()
+        out = quickstart.decode_and_score(trainer.model, qcfg, root,
+                                          quickstart.build_decoder(root), session_data=columns)
+        decode_s = time.perf_counter() - t0
+        decode_launches = counted_launches(counters)
+        with open(out["csv_path"]) as f:
+            rows = list(csv.reader(f))
+    fig["quickstart"] = {
+        "steps": QUICKSTART_STEPS, "reduced": {"num_training_batches": [300, QUICKSTART_STEPS]},
+        "demo_knobs": DEMO_KNOBS,
+        "no_checkpoint": "save_best_checkpoint, save_val_metrics off: no PyYAML on the host",
+        "neural_dim": 512, "batch_size": qcfg.dataset.batch_size, "dtype": "float32",
+        "train_s": train_s, "losses": [stats["train_losses"][0], stats["train_losses"][-1]],
+        "val_PERs": stats["val_PERs"], "train_launches": train_launches,
+        "n_trials": out["n_trials"], "greedy_PER": out["greedy_PER"], "WER": out["WER"],
+        "decode_s": decode_s, "decode_launches": decode_launches,
+        "csv_rows": len(rows) - 1, "csv_header": rows[0]}
+    q = fig["quickstart"]
+    if not (q["csv_rows"] == q["n_trials"] > 0 and rows[0] == ["id", "text"]):
+        problems.append(f"quickstart: {q['csv_rows']} CSV rows for {q['n_trials']} trials")
+    if not (train_launches["gru_fwd"] > 0 and train_launches["gru_bwd"]
+            == QUICKSTART_STEPS * cfg.model.n_layers and decode_launches["gru_fwd"] > 0):
+        problems.append(f"quickstart launches: {train_launches}, {decode_launches}")
+    if not all(np.isfinite([out["greedy_PER"], out["WER"]] + q["losses"])):
+        problems.append(f"quickstart: not finite: {q}")
+    del trainer
+
+    # (c) the conversation demo: the picks, then context scoring at 6.7b
+    picks = conversation_demo.homophone_picks()
+    ocfg = OPTConfig.opt_6_7b()
+    t0 = time.perf_counter()
+    scores = conversation_demo.context_scoring(ocfg, opt_params, "cuda", torch.bfloat16)
+    conv_s = time.perf_counter() - t0
+    fig["conversation"] = {
+        "picks": picks, "opt": "OPTConfig.opt_6_7b(), bf16, random weights (the OPT phases')",
+        "prefix_kv": scores["prefix_kv"].tolist(), "concatenated": scores["concatenated"].tolist(),
+        "max_abs": max_abs(scores["prefix_kv"], scores["concatenated"]),
+        "tol": OPT_PREFIX_TOL, "prefix_runs": scores["prefix_runs"], "s": conv_s}
+    if picks != {"look at the sky": "the sun is bright here",
+                 "he hugged his family": "the son is bright here"}:
+        problems.append(f"conversation picks: {picks}")
+    if not (scores["prefix_runs"] == 1 and np.isfinite(scores["prefix_kv"]).all()
+            and np.allclose(scores["prefix_kv"], scores["concatenated"], **OPT_PREFIX_TOL)):
+        problems.append(f"conversation context scoring: {fig['conversation']}")
+
+    # (d) host-only demos at their defaults
+    t0 = time.perf_counter()
+    lat = lattice_demo.main(verbose=False)
+    spell = spelling_demo.main(verbose=False)
+    fig["lattice_demo"], fig["spelling_demo"] = lat, spell
+    fig["host_demos_s"] = time.perf_counter() - t0
+    if lat != LATTICE_DEMO_RESULT or spell != SPELLING_DEMO_RESULT:
+        problems.append(f"lattice / spelling demos: {lat} / {spell}, the CPU gives "
+                        f"{LATTICE_DEMO_RESULT} / {SPELLING_DEMO_RESULT}")
+
+    # (e) the figures demo's data half on the card
+    zero(counters)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_figures_") as out_dir:
+        data = figures_demo.figure_data(out_dir, device="cuda", n_batches=FIGURES_STEPS,
+                                        model=TrainConfig().model, in_memory=True,
+                                        verbose=False)
+    fig["figures"] = {
+        "steps": FIGURES_STEPS, "reduced": {"num_training_batches": [120, FIGURES_STEPS]},
+        "demo_knobs": DEMO_KNOBS,
+        "s": time.perf_counter() - t0, "launches": counted_launches(counters),
+        "trials": len(data["res"]["trials"]), "WER": data["res"]["WER"],
+        "wpm": data["wpm"], "fig2_conditions": sorted(data["fig2"]),
+        "raster_shape": list(data["raster"]["probs"].shape),
+        "render": "the plot_* half is tested on the CPU (no matplotlib on the host)"}
+    if fig["figures"]["launches"]["gru_fwd"] == 0 or fig["figures"]["trials"] != 48:
+        problems.append(f"figures data half: {fig['figures']}")
+    fig["launches_total"] = {
+        "gru_fwd": (stream["float32"]["gru_fwd_launches"]
+                    + stream["bfloat16"]["gru_fwd_launches"]
+                    + train_launches["gru_fwd"] + decode_launches["gru_fwd"]
+                    + fig["figures"]["launches"]["gru_fwd"]),
+        "gru_bwd": train_launches["gru_bwd"] + fig["figures"]["launches"]["gru_bwd"]}
+    fig["s"] = time.perf_counter() - t_phase
+    fig["ok"], fig["problems"] = not problems, problems
+    emit(fig)
+    return fig
+
+
+def phase_quality_ladder(world, counters):
+    """``b2txt_tpu_torch.scripts.quality_ladder.run_ladder`` on the connected
+    world: planted stage 1 (K1) at head gains ``LADDER_GAINS``, 128
+    utterances of 520 bins in batches of 64; the native searcher and the
+    device searcher of the connected phase on identical posteriors at every
+    gain; the native lattice n-best (``state_key="ngram"``, width 512) on two
+    gains over the first 32 utterances. At gain 45 both must be exact on all
+    128 with equal WER; below it, agreement is reported, and for a gain
+    where the top-1s differ, the first such utterance with both n-bests'
+    scores of both answers."""
+    import tempfile
+
+    import torch
+
+    from b2txt_tpu_torch.runtime import NativeLexiconBeamSearch
+    from b2txt_tpu_torch.scripts.quality_ladder import backend_row, run_ladder
+    from b2txt_tpu_torch.scripts.world import make_planted_utts
+
+    dcfg = world["decode"]
+    t0 = time.perf_counter()
+    utts = make_planted_utts(world["lexicon"], world["words"], np.random.default_rng(SEED + 9),
+                             LADDER_UTTS, BINS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ladder_") as tmp:
+        files = write_world(tmp, world["lexicon"], world["lm"], world["lm_unpruned"])
+        lat_cfg = dcfg.replace(beam_width=LADDER_LATTICE_WIDTH, lattice_beam=12.0,
+                               lattice_nbest=True)
+        lattice = NativeLexiconBeamSearch(files["arpa"], files["lexicon"], lat_cfg,
+                                          max_homophones=4, rescore_arpa=files["unpruned"],
+                                          state_key="ngram")
+    setup_s = time.perf_counter() - t0
+    launches = []
+
+    def emit_row(row):
+        launches.append(counted_launches(counters))
+        zero(counters)
+        emit({"phase": "quality_ladder", **row})
+
+    zero(counters)
+    t0 = time.perf_counter()
+    ladder = run_ladder(dcfg, utts, LADDER_GAINS, LADDER_BLANK_BIAS, LADDER_BATCH, BINS,
+                        world["native_service"].searcher, world["searcher"], device="cuda",
+                        emit=emit_row)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sents = [s for s, _ in utts]
+    # the lattice n-best, cut to two gains over the first utterances (its host
+    # time), on the posteriors the ladder decoded
+    lattice_s = 0.0
+    for row in ladder:
+        if row["gain"] not in LADDER_LATTICE_GAINS:
+            continue
+        lat_results = []
+        t0 = time.perf_counter()
+        for lp in row["posteriors"][:LADDER_LATTICE_UTTS]:
+            lattice.reset()
+            lattice.decode(lp)
+            lat_results.append(lattice.finish_decoding())
+        lat_s = time.perf_counter() - t0
+        lattice_s += lat_s
+        head = sents[:LADDER_LATTICE_UTTS]
+        # the native searcher's quality on the same utterances (its speed is the row's)
+        native_head = backend_row(dcfg, head, row["results"]["native"][:LADDER_LATTICE_UTTS],
+                                  lat_s)
+        del native_head["sentences_per_s"]
+        emit({"phase": "quality_ladder_lattice", "gain": row["gain"],
+              "utts": LADDER_LATTICE_UTTS, "width": LADDER_LATTICE_WIDTH,
+              "lattice": backend_row(dcfg, head, lat_results, lat_s),
+              "native_same_utts": native_head})
+    problems, differs = [], {}
+    for row, n in zip(ladder, launches):
+        res = row["results"]
+        for i, (nat, dev) in enumerate(zip(res["native"], res["device"])):
+            top_n = nat[0].sentence if nat else ""
+            top_d = dev[0].sentence if dev else ""
+            if top_n == top_d:
+                continue
+
+            def scored(results, sentence):
+                hit = [r for r in results if r.sentence == sentence]
+                return ([hit[0].ac_score, hit[0].lm_score,
+                         dcfg.acoustic_scale * hit[0].ac_score + hit[0].lm_score]
+                        if hit else None)
+
+            differs[str(row["gain"])] = {
+                "utterance": i, "truth": sents[i], "native_top1": top_n, "device_top1": top_d,
+                "score_is": "[ac, lm, acoustic_scale * ac + lm]",
+                "native_nbest": {"native_top1": scored(nat, top_n),
+                                 "device_top1": scored(nat, top_d)},
+                "device_nbest": {"native_top1": scored(dev, top_n),
+                                 "device_top1": scored(dev, top_d)}}
+            break
+        if n["gru_fwd"] != (LADDER_UTTS // LADDER_BATCH) * 5:
+            problems.append(f"gain {row['gain']}: K1 launched {n['gru_fwd']} times")
+    top = ladder[-1]
+    if not (top["gain"] == 45.0 and top["native"]["exact"] == top["device"]["exact"]
+            == f"{LADDER_UTTS}/{LADDER_UTTS}" and top["native"]["wer"] == top["device"]["wer"]):
+        problems.append(f"gain 45: native {top['native']}, device {top['device']}")
+    fig = {"phase": "quality_ladder_summary", "vocab": CONNECTED_VOCAB,
+           "decode": CONNECTED_DECODE, "gains": list(LADDER_GAINS),
+           "blank_bias": LADDER_BLANK_BIAS, "utts": LADDER_UTTS, "bins": BINS,
+           "device_batch": LADDER_BATCH,
+           "lattice": {"width": LADDER_LATTICE_WIDTH, "gains": list(LADDER_LATTICE_GAINS),
+                       "utts": LADDER_LATTICE_UTTS,
+                       "reduced": {"gains": [len(LADDER_GAINS), len(LADDER_LATTICE_GAINS)],
+                                   "utts": [LADDER_UTTS, LADDER_LATTICE_UTTS]}},
+           "top1_agreement": {str(r["gain"]): r["top1_agreement"] for r in ladder},
+           "native_wer": {str(r["gain"]): r["native"]["wer"] for r in ladder},
+           "device_wer": {str(r["gain"]): r["device"]["wer"] for r in ladder},
+           "first_differing": differs, "launches_per_gain": launches,
+           "setup_s": setup_s, "s": wall, "lattice_s": lattice_s, "host_cpu": host_cpu()}
+    fig["ok"], fig["problems"] = not problems, problems
+    emit(fig)
+    return fig
+
+
 def kernel_entry(name, route, source, replaces, launches, launches_per, k, shape_keys):
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "launches_per": launches_per,
@@ -1974,9 +2338,12 @@ def main() -> int:
     train_shape = (cfg.dataset.batch_size, main_shape[1], cfg.model.n_units)
     phase_gru_witness(*main_shape)
     connected_shape = (CONNECTED_BATCH,) + main_shape[1:]
+    # the streaming hop's shapes: one step per layer at B = 1, and four
+    stream_shapes = [(1, 1, cfg.model.n_units), (1, 4, cfg.model.n_units)]
     fwd_figs = phase_kernel_gru_fwd(KERNEL_CASES + [main_shape + ("contractive",),
                                                     main_shape + ("decoder_init",),
-                                                    connected_shape + ("decoder_init",)])
+                                                    connected_shape + ("decoder_init",)]
+                                    + [shape + ("decoder_init",) for shape in stream_shapes])
     bwd_figs = phase_kernel_gru_bwd(KERNEL_CASES + [train_shape + ("contractive",),
                                                     train_shape + ("decoder_init",)])
     pre_fig = phase_kernel_fused_preprocess(cfg.dataset.batch_size, BINS,
@@ -2023,6 +2390,9 @@ def main() -> int:
     if not prefix_fig["ok"]:
         problems.append(f"prefix_beam: {prefix_fig['same_top1']}/{PREFIX_UTTS} top-1 equal to "
                         f"the oracle's; {prefix_fig['problems']}")
+    ladder_fig = phase_quality_ladder(conn_world, {"gru_fwd": gru_layer_forward})
+    if not ladder_fig["ok"]:
+        problems.append(f"quality_ladder: {ladder_fig['problems']}")
     # OPT-6.7b's 13.3 GB of bf16 weights, drawn on the card from a seed; the
     # connected world leaves the card after the finalize, the weights after
     # the rescore phases
@@ -2041,6 +2411,10 @@ def main() -> int:
     resc_fig = phase_opt_rescore(opt_params)
     if not resc_fig["ok"]:
         problems.append(f"opt_rescore: {resc_fig}")
+    examples_fig = phase_examples(opt_params, {"gru_fwd": gru_layer_forward,
+                                               "gru_bwd": gru_layer_backward})
+    if not examples_fig["ok"]:
+        problems.append(f"examples: {examples_fig['problems']}")
     del opt_params
     torch.cuda.empty_cache()
     train_fig = phase_train({"gru_fwd": gru_layer_forward, "gru_bwd": gru_layer_backward,
@@ -2057,15 +2431,26 @@ def main() -> int:
     emit({"kernels": [
         kernel_entry("gru_fwd", "cuda", "b2txt_tpu_torch/csrc/gru_fwd.cu",
                      "b2txt_tpu/ops/pallas/gru.py:32",
-                     fig["launches"]["gru_fwd"] + cli_fig["launches_total"]["gru_fwd"],
+                     fig["launches"]["gru_fwd"] + cli_fig["launches_total"]["gru_fwd"]
+                     + examples_fig["launches_total"]["gru_fwd"]
+                     + sum(n["gru_fwd"] for n in ladder_fig["launches_per_gain"]),
                      f"serve run: {fig['batches']} forward batch of {N_REQUESTS} requests "
                      f"({fig['launches']['gru_fwd']}); cli runs: "
-                     + ", ".join(f"{k} {v['gru_fwd']}" for k, v in cli_fig["launches"].items()),
+                     + ", ".join(f"{k} {v['gru_fwd']}" for k, v in cli_fig["launches"].items())
+                     + f"; examples {examples_fig['launches_total']['gru_fwd']} (streaming "
+                     f"{STREAM_WARMUP + STREAM_HOPS} hops in f32 and bf16, quickstart, "
+                     f"figures); quality ladder "
+                     f"{sum(n['gru_fwd'] for n in ladder_fig['launches_per_gain'])} "
+                     f"({len(LADDER_GAINS)} gains x {LADDER_UTTS // LADDER_BATCH} batches)",
                      k_fwd, ("B", "T", "H", "dtype", "weights")),
         kernel_entry("gru_bwd", "cuda", "b2txt_tpu_torch/csrc/gru_bwd.cu",
                      "b2txt_tpu/ops/pallas/gru.py:122",
-                     runs["transform_data"]["launches"]["gru_bwd"],
-                     f"train run: {TRAIN_STEPS} steps", k_bwd,
+                     runs["transform_data"]["launches"]["gru_bwd"]
+                     + examples_fig["launches_total"]["gru_bwd"],
+                     f"train run: {TRAIN_STEPS} steps "
+                     f"({runs['transform_data']['launches']['gru_bwd']}); examples: "
+                     f"quickstart {QUICKSTART_STEPS} steps, figures {FIGURES_STEPS} steps "
+                     f"({examples_fig['launches_total']['gru_bwd']})", k_bwd,
                      ("B", "T", "H", "dtype", "weights")),
         kernel_entry("fused_preprocess", "cuda", "b2txt_tpu_torch/csrc/preprocess.cu",
                      "b2txt_tpu/ops/pallas/preprocess.py:51",

@@ -237,3 +237,71 @@ def test_synthetic_copy_is_verbatim_plus_in_memory_trials():
     ref = (ROOT / "b2txt_tpu/data/synthetic.py").read_text()
     assert ours.startswith(ref)
     assert "def synthetic_trials(" in ours[len(ref):]
+
+
+# functions and tables the port copies from the programs outside the JAX
+# package: (the port's file under b2txt_tpu_torch/, the original, names)
+OUTSIDE = [
+    ("scripts/world.py", "bench.py",
+     ["build_world", "make_planted_utts", "score_results", "aggregate_wer"]),
+    ("scripts/quality_ladder.py", "scripts/quality_ladder.py", ["pool_metrics"]),
+    ("examples/lattice_demo.py", "examples/lattice_demo.py", ["main"]),
+    ("examples/spelling_demo.py", "examples/spelling_demo.py",
+     ["FALLBACK_WORDS", "spelled_corpus", "main"]),
+    ("examples/conversation_demo.py", "examples/conversation_demo.py",
+     ["LEX", "DECODE_CORPUS", "LLM_CORPUS", "clean_logits"]),
+]
+
+
+def _top_level(path: Path, package: str):
+    """{name: AST dump} of a file's top-level functions and assignments,
+    docstrings dropped and relative imports resolved against ``package``,
+    with the port's package named as the JAX package."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            base = package.split(".")[: len(package.split(".")) - node.level + 1]
+            node.module = ".".join(base + ([node.module] if node.module else []))
+            node.level = 0
+        if isinstance(node, ast.ImportFrom) and node.module.startswith("b2txt_tpu_torch"):
+            node.module = "b2txt_tpu" + node.module[len("b2txt_tpu_torch"):]
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                node.body = body[1:]
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name):
+            out[node.targets[0].id] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("port,original,names", OUTSIDE, ids=[o[0] for o in OUTSIDE])
+def test_copies_of_the_programs_are_verbatim(port, original, names):
+    """The same code but for docstrings, comments and imports, which name
+    the port's modules relatively."""
+    package = "b2txt_tpu_torch." + port.rsplit("/", 1)[0].replace("/", ".")
+    ours = _top_level(ROOT / "b2txt_tpu_torch" / port, package)
+    theirs = _top_level(ROOT / original, "")
+    for name in names:
+        assert ours[name] == theirs[name], name
+
+
+@pytest.mark.parametrize("name", ["figure_2.ipynb", "figure_4.ipynb"])
+def test_notebooks_are_the_jax_ones_over_the_port(name):
+    """The port's notebooks are the JAX package's with the port's package
+    and their place in it (two levels below the root) swapped in."""
+    import json
+
+    def code(path):
+        nb = json.loads(path.read_text())
+        return ["".join(c["source"]) for c in nb["cells"] if c["cell_type"] == "code"]
+
+    ours = [src.replace("b2txt_tpu_torch.analysis", "b2txt_tpu.analysis")
+               .replace('sys.path.insert(0, os.path.join("..", ".."))', 'sys.path.insert(0, "..")')
+               .replace('os.path.join("..", "..", "data",', 'os.path.join("..", "data",')
+            for src in code(ROOT / "b2txt_tpu_torch" / "analyses" / name)]
+    assert ours == code(ROOT / "analyses" / name)

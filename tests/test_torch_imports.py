@@ -73,7 +73,12 @@ def test_every_module_imports_without_jax():
                 "b2txt_tpu_torch.ops.segment", "b2txt_tpu_torch.scripts.train_model",
                 "b2txt_tpu_torch.scripts.convert_checkpoint", "b2txt_tpu_torch.scripts.build_lm",
                 "b2txt_tpu_torch.scripts.decode_logits", "b2txt_tpu_torch.scripts.download_data",
-                "b2txt_tpu_torch.scripts.eval_45session_sim"}
+                "b2txt_tpu_torch.scripts.eval_45session_sim", "b2txt_tpu_torch.scripts.world",
+                "b2txt_tpu_torch.scripts.quality_ladder", "b2txt_tpu_torch.examples",
+                "b2txt_tpu_torch.examples.quickstart", "b2txt_tpu_torch.examples.streaming_demo",
+                "b2txt_tpu_torch.examples.conversation_demo",
+                "b2txt_tpu_torch.examples.lattice_demo", "b2txt_tpu_torch.examples.spelling_demo",
+                "b2txt_tpu_torch.examples.figures_demo"}
     assert expected <= set(report["names"])
 
 

@@ -48,6 +48,8 @@ def _recurrent_inputs(B, H, weights, rng):
     # not multiples of the mma tiles (16 rows, k16), and H % 8 != 0 (element loads)
     (17, 9, 40, "contractive"), (1, 9, 40, "contractive"), (3, 6, 13, "contractive"),
     (17, 125, 768, "contractive"), (128, 125, 768, "decoder_init"),
+    # the streaming hop: one patch window, one step per layer, carried state
+    (1, 1, 768, "decoder_init"), (1, 4, 768, "decoder_init"),
 ])
 def test_gru_kernel_matches_plain(B, T, H, weights, dtype, tol):
     _need_card()

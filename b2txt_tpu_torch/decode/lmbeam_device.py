@@ -1,9 +1,9 @@
 """Lexicon-constrained CTC beam search with n-gram fusion, on the device.
 
-Counterpart of ``b2txt_tpu/decode/lmbeam_jax.py`` (without the sharded
-decode, :1091-1198). The lexicon trie and the n-gram bucket tables are
-tensors on the searcher's device, and each frame expands a fixed-width beam
-of hypotheses for a whole batch of utterances at once:
+Counterpart of ``b2txt_tpu/decode/lmbeam_jax.py``. The lexicon trie and the
+n-gram bucket tables are tensors on the searcher's device, and each frame
+expands a fixed-width beam of hypotheses for a whole batch of utterances at
+once:
 
     stay / repeat         (K)        blank or absorbed-repeat emissions
     extend-phone          (K×FB)     trie transitions (L.fst arcs)
@@ -36,6 +36,11 @@ What differs from the JAX module, and why:
   outrank a real hypothesis.
 - No time bucketing: shapes need not be static, so a batch runs exactly its
   longest utterance's frames.
+- ``sharded_decode_batch`` runs one process per rank of a ``DeviceMesh``
+  axis (the JAX package's ``shard_map``): each rank prepares the WHOLE
+  batch, so every rank runs the same frames and issues the same probes, and
+  decodes its rows against its block of the bucket table
+  (``lm.device_ngram.ShardedNGram``).
 
 Score semantics mirror the host LexiconBeamSearch (lmbeam.py), this
 module's correctness oracle (tested).
@@ -641,12 +646,14 @@ class DeviceLexiconBeamSearch:
                     first_beam=cfg.first_beam_size or None, sum_mode=bool(cfg.sum_mode))
 
     # ----------------------------------------------------------------- scan
-    def _scan_batch(self, state: LmBeamState, lp: torch.Tensor, lengths: np.ndarray):
+    def _scan_batch(self, state: LmBeamState, lp: torch.Tensor, lengths: np.ndarray,
+                    n_frames: Optional[int] = None):
         """Batched utterance decode: the expansion over B utterances, one
-        frame at a time, up to the longest utterance. Frames past an
-        utterance's length leave its beams as they are. Nothing here waits
-        for the device: ``lengths`` is on the host. Returns the final state
-        and the backpointers (parents int16, words int32), each (T, B, K)."""
+        frame at a time, up to the longest utterance (or ``n_frames``
+        frames). Frames past an utterance's length leave its beams as they
+        are. Nothing here waits for the device: ``lengths`` is on the host.
+        Returns the final state and the backpointers (parents int16, words
+        int32), each (T, B, K)."""
         B, T, V = lp.shape
         K = state.s.shape[1]
         args = self._step_args()
@@ -654,7 +661,9 @@ class DeviceLexiconBeamSearch:
         n_all = int(np.min(lengths, initial=T))   # frames every utterance has
         keep_k = torch.arange(K, dtype=torch.int32, device=lp.device).expand(B, K)
         parents, words = [], []
-        for t in range(min(T, int(np.max(lengths, initial=0)))):
+        if n_frames is None:
+            n_frames = min(T, int(np.max(lengths, initial=0)))
+        for t in range(n_frames):
             new, par, _, wd = self._expand(state, lp[:, t], **args)
             if t < n_all:
                 state = new
@@ -832,6 +841,69 @@ class DeviceLexiconBeamSearch:
                 )
             results.append(out)
         return results
+
+    # -------------------------------------------------------------- sharded
+    def sharded_decode_batch(
+        self,
+        log_probs: Union[np.ndarray, torch.Tensor],
+        input_lengths: Optional[np.ndarray] = None,
+        *,
+        mesh,
+        axis: str = "data",
+        nbest: Optional[int] = None,
+    ) -> List[List[DecodeResult]]:
+        """``decode_batch`` over the ``axis`` of a ``DeviceMesh``, on every
+        rank of it at once (one process per rank, each given the whole
+        batch): the utterances shard over the axis AND the bucket table
+        row-shards over the same ranks (``ShardedNGram``: probes exchange
+        keys with an all-gather and reassemble rows with a reduce-scatter).
+        Every rank returns the n-best of the whole batch, equal bit for bit
+        to ``decode_batch``'s. B must be divisible by the axis size.
+
+        Each rank prepares the whole batch (the blank-skip compaction sets
+        T) and runs the whole batch's longest length of frames, so every
+        rank issues the same probes. The pool rescore (``rescore_lm``) runs
+        unsharded on every rank over the gathered pool."""
+        from ..lm.device_ngram import ShardedNGram
+        from ..parallel.comm import gather_shards
+
+        group = mesh.get_group(axis)
+        D, r = mesh[axis].size(), mesh.get_local_rank(axis)
+        with torch.inference_mode():
+            lp, lengths, log_bp = self._prep_batch(log_probs, input_lengths)
+            B, T, _ = lp.shape
+            if B % D:
+                raise ValueError(f"batch {B} not divisible by mesh axis size {D}")
+            packed, _ = self.dev_lm.table
+            if packed.shape[0] % D:
+                raise ValueError(f"{packed.shape[0]} buckets not divisible by {D} ranks")
+            if log_bp != 0.0:
+                lp[:, :, self.blank] -= log_bp
+            b, n = B // D, packed.shape[0] // D
+            rows = slice(r * b, (r + 1) * b)
+            # this rank's block of bucket rows, on this rank's device
+            self.sharded_lm = ShardedNGram.from_device_ngram(
+                self.dev_lm, packed[r * n:(r + 1) * n].to(self.device), group)
+            base = self.dev_lm
+            self.dev_lm = self.sharded_lm
+            try:
+                state, recs = self._scan_batch(self._make_state(b), lp[rows], lengths[rows],
+                                               n_frames=min(T, int(np.max(lengths, initial=0))))
+                final = self._finalize(state)
+            finally:
+                self.dev_lm = base
+            # the whole pool to every rank: two all-gathers of int32 stacks
+            i32 = torch.int32
+            scores, words, lms, acs = gather_shards(torch.stack(
+                [final[0].view(i32), final[1].to(i32), final[2].view(i32),
+                 final[3].contiguous().view(i32)]), 1, group).unbind(0)      # (B, K, H+1)
+            parents, wds = gather_shards(torch.stack([recs[0].to(i32), recs[1]]), 2,
+                                         group).unbind(0)                  # (T, B, K)
+            final_np = (scores.view(torch.float32).cpu().numpy(), words.cpu().numpy(),
+                        lms.view(torch.float32).cpu().numpy(),
+                        acs.view(torch.float32).cpu().numpy())
+            recs_np = (parents.to(torch.int16).cpu().numpy(), wds.cpu().numpy())
+        return self._extract_results(final_np, recs_np, nbest)
 
     # ------------------------------------------------------------- protocol
     def decode(self, log_probs: Union[np.ndarray, torch.Tensor]) -> None:

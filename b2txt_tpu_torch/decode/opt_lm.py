@@ -18,9 +18,15 @@ n-best hypotheses with token-logprob sums (language-model-standalone.py
 
 What differs from the JAX module, and why:
 
-- No mesh: ``OPTRescorer`` takes ``device`` (None = the CUDA card) where the
-  JAX one takes ``mesh``; tensor-parallel ``partition_specs`` belong to the
-  port's ``parallel/`` work, not to one card.
+- The mesh is a ``DeviceMesh`` with one process per position
+  (``parallel/``), not one SPMD program: ``OPTModel(model_parallel=M)``
+  holds this rank's column-parallel q/k/v/fc1 rows (heads and FFN units
+  M ways) and row-parallel out_proj/fc2 columns, and its forward runs an
+  ``all_reduce`` over the "model" group after out_proj and fc2, adding
+  their biases once, after the sum (``partition_specs``; XLA inserts that
+  reduce on the TPU). ``OPTRescorer(mesh=...)`` also shards its rows over
+  "data": every rank scores the whole list's rows it owns and the
+  per-segment sums (or the rows' sums) meet over the data group.
 - Shapes are not bucketed: the JAX rescorer rounds the row count to 8, the
   unpacked length to 16, the segment count to 32 and the context length to
   32 for XLA's compile cache. Eager PyTorch compiles nothing per shape, so
@@ -108,41 +114,60 @@ def param_shapes(cfg: OPTConfig) -> Dict[str, tuple]:
     return shapes
 
 
+def partition_specs(cfg: OPTConfig) -> Dict[str, Optional[int]]:
+    """Tensor-parallel layout over the "model" axis, by HF name: the
+    dimension each tensor splits along, or None (replicated). q/k/v and fc1
+    are column-parallel (their (out, in) weights and biases split on dim 0:
+    heads and FFN units); out_proj and fc2 are row-parallel (weights split
+    on dim 1, an all_reduce follows, and their biases are added once after
+    it); embeddings and norms replicate. JAX's P(None, "model") on its
+    (in, out) weights is the same split."""
+    specs: Dict[str, Optional[int]] = {name: None for name in param_shapes(cfg)}
+    for i in range(cfg.num_layers):
+        p = f"model.decoder.layers.{i}."
+        for col in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "fc1"):
+            specs[p + col + ".weight"] = specs[p + col + ".bias"] = 0
+        for row in ("self_attn.out_proj", "fc2"):
+            specs[p + row + ".weight"] = 1
+    return specs
+
+
 class _Attention(nn.Module):
-    def __init__(self, d: int, device, dtype):
+    def __init__(self, d: int, device, dtype, m: int):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.k_proj = nn.Linear(d, d, **kw)
-        self.v_proj = nn.Linear(d, d, **kw)
-        self.q_proj = nn.Linear(d, d, **kw)
-        self.out_proj = nn.Linear(d, d, **kw)
+        self.k_proj = nn.Linear(d, d // m, **kw)
+        self.v_proj = nn.Linear(d, d // m, **kw)
+        self.q_proj = nn.Linear(d, d // m, **kw)
+        self.out_proj = nn.Linear(d // m, d, **kw)
 
 
 class _Layer(nn.Module):
-    def __init__(self, cfg: OPTConfig, device, dtype):
+    def __init__(self, cfg: OPTConfig, device, dtype, m: int):
         super().__init__()
         D, kw = cfg.hidden_size, dict(device=device, dtype=dtype)
-        self.self_attn = _Attention(D, device, dtype)
+        self.self_attn = _Attention(D, device, dtype, m)
         self.self_attn_layer_norm = nn.LayerNorm(D, **kw)
-        self.fc1 = nn.Linear(D, cfg.ffn_dim, **kw)
-        self.fc2 = nn.Linear(cfg.ffn_dim, D, **kw)
+        self.fc1 = nn.Linear(D, cfg.ffn_dim // m, **kw)
+        self.fc2 = nn.Linear(cfg.ffn_dim // m, D, **kw)
         self.final_layer_norm = nn.LayerNorm(D, **kw)
 
 
 class _Decoder(nn.Module):
-    def __init__(self, cfg: OPTConfig, device, dtype):
+    def __init__(self, cfg: OPTConfig, device, dtype, m: int):
         super().__init__()
         D, kw = cfg.hidden_size, dict(device=device, dtype=dtype)
         self.embed_tokens = nn.Embedding(cfg.vocab_size, D, **kw)
         self.embed_positions = nn.Embedding(cfg.max_position_embeddings + POS_OFFSET, D, **kw)
-        self.layers = nn.ModuleList(_Layer(cfg, device, dtype) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(_Layer(cfg, device, dtype, m)
+                                    for _ in range(cfg.num_layers))
         self.final_layer_norm = nn.LayerNorm(D, **kw)
 
 
 class _Body(nn.Module):
-    def __init__(self, cfg: OPTConfig, device, dtype):
+    def __init__(self, cfg: OPTConfig, device, dtype, m: int):
         super().__init__()
-        self.decoder = _Decoder(cfg, device, dtype)
+        self.decoder = _Decoder(cfg, device, dtype, m)
 
 
 def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -163,13 +188,24 @@ class OPTModel(nn.Module):
     weights from a state dict (``init_params``, ``params_from_hf``,
     ``params_from_jax``), or build one around existing tensors with
     :meth:`from_state_dict`. ``lm_head.weight`` is
-    ``model.decoder.embed_tokens.weight`` (tied, as in OPT)."""
+    ``model.decoder.embed_tokens.weight`` (tied, as in OPT).
 
-    def __init__(self, cfg: OPTConfig, device=None, dtype: torch.dtype = torch.float32):
+    ``model_parallel=M`` builds this rank's shard of the tensor-parallel
+    model (``partition_specs``): 1/M of the heads and FFN units. Its
+    forward all-reduces over ``tp_group``, the mesh's "model" group, which
+    :meth:`from_state_dict` sets from a mesh."""
+
+    def __init__(self, cfg: OPTConfig, device=None, dtype: torch.dtype = torch.float32,
+                 model_parallel: int = 1):
         super().__init__()
         device = resolve_device(device)
+        if cfg.num_heads % model_parallel or cfg.ffn_dim % model_parallel:
+            raise ValueError(f"{cfg.num_heads} heads and {cfg.ffn_dim} FFN units must divide "
+                             f"by model={model_parallel}")
         self.cfg = cfg
-        self.model = _Body(cfg, device, dtype)
+        self.model_parallel = model_parallel
+        self.tp_group = None
+        self.model = _Body(cfg, device, dtype, model_parallel)
         self.lm_head = nn.Module()
         self.tie_weights()
 
@@ -177,12 +213,24 @@ class OPTModel(nn.Module):
         self.lm_head.weight = self.model.decoder.embed_tokens.weight
 
     @classmethod
-    def from_state_dict(cls, cfg: OPTConfig, state_dict: StateDict, device=None) -> "OPTModel":
+    def from_state_dict(cls, cfg: OPTConfig, state_dict: StateDict, device=None,
+                        mesh=None) -> "OPTModel":
         """The model around ``state_dict``'s tensors, moved to ``device``
-        (None = the CUDA card) in their own dtype, without a second copy."""
+        (None = the CUDA card) in their own dtype, without a second copy.
+        With a ("data", "model") ``mesh``: this rank's tensor-parallel shard
+        of the full ``state_dict``, all-reducing over the "model" group."""
         device = resolve_device(device)
-        model = cls(cfg, device="meta")
-        sd = {k: v.to(device) for k, v in state_dict.items() if k != "lm_head.weight"}
+        sd = {k: v for k, v in state_dict.items() if k != "lm_head.weight"}
+        M = 1
+        if mesh is not None:
+            from ..parallel.mesh import shard_tensors
+
+            M = mesh["model"].size()
+            sd = shard_tensors(sd, partition_specs(cfg), mesh)
+        model = cls(cfg, device="meta", model_parallel=M)
+        if mesh is not None:
+            model.tp_group = mesh.get_group("model")
+        sd = {k: v.to(device) for k, v in sd.items()}
         sd["lm_head.weight"] = sd["model.decoder.embed_tokens.weight"]
         model.load_state_dict(sd, assign=True)
         model.tie_weights()
@@ -213,8 +261,8 @@ class OPTModel(nn.Module):
         dec = self.model.decoder
         B, L = tokens.shape
         D = cfg.hidden_size
-        H = cfg.num_heads
-        hd = D // H
+        hd = D // cfg.num_heads
+        H = cfg.num_heads // self.model_parallel   # this rank's heads
         dev = tokens.device
         emb = _cast(dec.embed_tokens.weight, compute_dtype)
         if positions is None:
@@ -259,18 +307,29 @@ class OPTModel(nn.Module):
                 v = torch.cat([_cast(vp, compute_dtype).expand((B,) + vp.shape[1:]), v], dim=1)
             att = torch.einsum("bqhd,bkhd->bhqk", q, k).masked_fill(~mask, neg)
             att = torch.softmax(att.float(), dim=-1).to(compute_dtype)
-            o = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, L, D)
-            x = x + _linear(o, attn.out_proj, compute_dtype)
+            o = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, L, H * hd)
+            x = x + self._row_parallel(o, attn.out_proj, compute_dtype)
 
             h = _ln(x, layer.final_layer_norm, compute_dtype)
             h = torch.relu(_linear(h, layer.fc1, compute_dtype))
-            x = x + _linear(h, layer.fc2, compute_dtype)
+            x = x + self._row_parallel(h, layer.fc2, compute_dtype)
 
         x = _ln(x, dec.final_layer_norm, compute_dtype)
         logits = (x @ emb.T).float()
         if return_kv:
             return logits, kv_cache
         return logits
+
+    def _row_parallel(self, h: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+        """out_proj / fc2: this rank's partial product summed over the
+        "model" group, then the bias, once."""
+        if self.tp_group is None:
+            return _linear(h, lin, dtype)
+        import torch.distributed as dist
+
+        y = F.linear(h, _cast(lin.weight, dtype))
+        dist.all_reduce(y, group=self.tp_group)
+        return y + _cast(lin.bias, dtype)
 
 
 def init_params(cfg: OPTConfig, device=None, dtype: torch.dtype = torch.float32,
@@ -411,7 +470,8 @@ def score_packed_fn(n_segments: int, compute_dtype: torch.dtype = torch.float32)
     return score
 
 
-def score_prefix_packed_fn(n_segments: int, compute_dtype: torch.dtype = torch.float32):
+def score_prefix_packed_fn(n_segments: int, compute_dtype: torch.dtype = torch.float32,
+                           meet: Optional[Callable] = None):
     """Shared-context variant of :func:`score_packed_fn` (the reference's
     conversational rescoring, standalone :165-199): every candidate is
     scored as context+hypothesis, but the context forward runs ONCE and the
@@ -420,7 +480,9 @@ def score_prefix_packed_fn(n_segments: int, compute_dtype: torch.dtype = torch.f
     Sums include the context's own token log-probs and the cross-boundary
     P(first hyp token | context); counts include the context tokens.
     ``positions`` are 0-based WITHIN each hypothesis; the prefix offset is
-    added here. ``n_ctx`` is the context's real length (a host int)."""
+    added here. ``n_ctx`` is the context's real length (a host int).
+    ``meet`` (sums, cnt) → (sums, cnt) combines the rows' segment sums
+    across ranks before the shared constants are added once."""
 
     def score(model: OPTModel, ctx, n_ctx: int, tokens, segment_ids, positions):
         Cb = ctx.shape[1]
@@ -442,6 +504,8 @@ def score_prefix_packed_fn(n_segments: int, compute_dtype: torch.dtype = torch.f
         first_lp = last_row[tokens.long()] * first
         sums = sums + _segment_sum(first_lp, torch.where(first, segment_ids, 0), n_segments)
         cnt = _segment_sum(mask, segment_ids, n_segments)
+        if meet is not None:
+            sums, cnt = meet(sums, cnt)
         # context log-prob and token count are shared constants — included
         # so totals equal concatenated context+hypothesis scoring exactly
         return sums + ctx_sum, cnt + n_ctx
@@ -509,7 +573,15 @@ class OPTRescorer:
     emitted. ``params`` is a state dict in the port's layout
     (``init_params``, ``params_from_hf``, ``params_from_jax``); without it the
     weights are drawn from ``seed``. Runs on ``device`` (None = the CUDA
-    card)."""
+    card).
+
+    ``mesh`` (a ("data", "model") ``DeviceMesh``, one process per position,
+    every rank scoring the same texts): the model is tensor-parallel over
+    "model" (``partition_specs``; the heads must divide by it) and the rows
+    (packed or not) shard over "data", padded to a multiple of its size.
+    Packed segment sums meet in an all_reduce over the data group, row sums
+    in an all-gather; a context stays whole on every rank. Every rank
+    returns every score."""
 
     def __init__(
         self,
@@ -522,8 +594,15 @@ class OPTRescorer:
         seed: int = 0,
         pack: bool = True,
         encode_cont: Optional[Callable[[str, int], List[int]]] = None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from ..parallel.mesh import mesh_device
+
+            self.device = mesh_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.max_len = min(max_len, cfg.max_position_embeddings)
         self.pack = pack
@@ -557,8 +636,32 @@ class OPTRescorer:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, self.device, torch.float32, gen)
-        self.model = OPTModel.from_state_dict(cfg, params, self.device)
+        self.model = OPTModel.from_state_dict(cfg, params, self.device, mesh=mesh)
         self.prefix_runs = 0   # context scorings that took the prefix-KV path
+
+    def _my_rows(self, *arrays: np.ndarray) -> List[np.ndarray]:
+        """With a mesh: this rank's block of the rows (``data_rows``)."""
+        if self.mesh is None:
+            return list(arrays)
+        from ..parallel.mesh import data_rows
+
+        return data_rows(self.mesh, *arrays)
+
+    def _meet(self, sums: torch.Tensor, cnt: torch.Tensor):
+        """Per-segment sums of every data rank's rows, summed (a segment
+        lies in one row: the other ranks add zeros)."""
+        import torch.distributed as dist
+
+        both = torch.stack([sums, cnt])
+        dist.all_reduce(both, group=self.mesh.get_group("data"))
+        return both[0], both[1]
+
+    def _gather(self, sums: torch.Tensor, cnt: torch.Tensor):
+        """Per-row sums of every data rank's rows, in row order."""
+        from ..parallel.comm import gather_shards
+
+        both = gather_shards(torch.stack([sums, cnt]), 1, self.mesh.get_group("data"))
+        return both[0], both[1]
 
     def _pack_arrays(self, ids: List[List[int]]):
         """First-fit-decreasing packing of token lists into rows of
@@ -591,7 +694,9 @@ class OPTRescorer:
         up = lambda a: upload(a, self.device)  # noqa: E731
         with torch.inference_mode():
             sums, cnt = score_packed_fn(n_segments, self.compute_dtype)(
-                self.model, up(tokens), up(seg), up(pos))
+                self.model, *map(up, self._my_rows(tokens, seg, pos)))
+            if self.mesh is not None:
+                sums, cnt = self._meet(sums, cnt)
         return _fetcher(sums, cnt, 1, len(ids), length_penalty)
 
     def _score_prefix_begin(
@@ -616,10 +721,11 @@ class OPTRescorer:
             return self._score_packed_begin(ids, length_penalty)
         tokens, seg, pos, n_segments = self._pack_arrays(ids)
         up = lambda a: upload(a, self.device)  # noqa: E731
+        meet = self._meet if self.mesh is not None else None
         with torch.inference_mode():
-            sums, cnt = score_prefix_packed_fn(n_segments, self.compute_dtype)(
+            sums, cnt = score_prefix_packed_fn(n_segments, self.compute_dtype, meet)(
                 self.model, up(np.asarray([ctx_ids], np.int64)), len(ctx_ids),
-                up(tokens), up(seg), up(pos))
+                *map(up, self._my_rows(tokens, seg, pos)))
         self.prefix_runs += 1
         return _fetcher(sums, cnt, 1, len(ids), length_penalty)
 
@@ -634,9 +740,12 @@ class OPTRescorer:
         for i, seq in enumerate(ids):
             tokens[i, : len(seq)] = seq[:L]
             mask[i, : len(seq)] = 1.0
+        tokens, mask = self._my_rows(tokens, mask)
         with torch.inference_mode():
             sums, n_tok = score_tokens_fn(self.compute_dtype)(
                 self.model, upload(tokens, self.device), upload(mask, self.device))
+            if self.mesh is not None:
+                sums, n_tok = self._gather(sums, n_tok)
         return _fetcher(sums, n_tok, 0, n, length_penalty)
 
     def score_async(

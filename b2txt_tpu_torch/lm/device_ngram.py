@@ -1,12 +1,12 @@
 """Device-resident n-gram model: a bucketed hash table in device memory plus
 dense unigrams.
 
-Counterpart of ``b2txt_tpu/lm/device_ngram.py`` (without ``ShardedNGram``,
-:539). The layout is the same, and the packed table is the same array bit
-for bit: every n-gram of order >= 2 lives in ONE bucketed table whose rows
-are buckets of 16 slots ``[key1, key2, value_bits, backoff_bits]`` (256 B of
-int32), so the beam search probes a word with one row gather; unigrams are
-dense arrays indexed by word id. The backoff recursion of
+Counterpart of ``b2txt_tpu/lm/device_ngram.py``. The layout is the same,
+and the packed table is the same array bit for bit: every n-gram of order
+>= 2 lives in ONE bucketed table whose rows are buckets of 16 slots
+``[key1, key2, value_bits, backoff_bits]`` (256 B of int32), so the beam
+search probes a word with one row gather; unigrams are dense arrays indexed
+by word id. The backoff recursion of
 ``NGramLM.logp`` resolves from the stacked probe results as a fixed,
 unrolled select chain.
 
@@ -16,6 +16,10 @@ is held as the int32 with the same bits: multiplies wrap modulo 2^32 and
 right shifts are arithmetic shifts masked to the logical result, so every
 key equals ``_mix_np``'s bit for bit, top bit included. There is no ``jit``:
 the table is a tensor on the searcher's device, probed with plain indexing.
+
+``ShardedNGram`` is the row-sharded view of one table over a process group
+(the JAX package's ``ShardedNGram``, :539-604): every probe goes through
+``DeviceNGram._lookup``, which the view overrides with the collective probe.
 """
 
 from __future__ import annotations
@@ -216,10 +220,19 @@ def _lookup(table: Tuple[torch.Tensor, int], h1: torch.Tensor, h2: torch.Tensor,
     """
     packed, cap = table
     n_buckets = packed.shape[0]
-    h1 = torch.where((h1 == 0) & (h2 == 0), torch.ones_like(h1), h1)
-    b = h1 & (n_buckets - 1)
+    h1 = _nonzero_key(h1, h2)
+    rows = packed[h1 & (n_buckets - 1)]                  # (..., cap*4): 1 row gather
+    return _match(rows, cap, h1, h2, not_found)
 
-    rows = packed[b]                                     # (..., cap*4): 1 row gather
+
+def _nonzero_key(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """(0, 0) marks an empty slot: such a key probes as h1 = 1."""
+    return torch.where((h1 == 0) & (h2 == 0), torch.ones_like(h1), h1)
+
+
+def _match(rows: torch.Tensor, cap: int, h1: torch.Tensor, h2: torch.Tensor,
+           not_found: float):
+    """(value, backoff, found) of keys (h1, h2) in their bucket rows."""
     rows = rows.reshape(rows.shape[:-1] + (cap, 4))
     hit = (rows[..., 0] == h1[..., None]) & (rows[..., 1] == h2[..., None])
     found = hit.any(dim=-1)
@@ -445,6 +458,11 @@ class DeviceNGram:
             ctxs.append((h1, h2))
         return ctxs
 
+    def _lookup(self, h1: torch.Tensor, h2: torch.Tensor, not_found: float):
+        """Probe entry point; ``ShardedNGram`` overrides it with the
+        collective probe."""
+        return _lookup(self.table, h1, h2, not_found)
+
     def logp_words(
         self,
         context: torch.Tensor,
@@ -485,17 +503,24 @@ class DeviceNGram:
                     for l in levels]
             gk1 = torch.stack([k[0] for k in keys])               # (o-1, ..., C)
             gk2 = torch.stack([k[1] for k in keys])
-            vg, _, fg = _lookup(self.table, gk1, gk2, self.unk_logp)
+            # context-backoff probes: suffix lengths order−1..2 via the table
+            # (length 1 via the dense unigram backoff), in the same probe as
+            # the grams: one row gather (one exchange when sharded) for both
+            ng = gk1.numel()
+            if order > 2:
+                ck1 = torch.stack([ctxs[(order - 1) - l][0] for l in levels[:-1]])
+                ck2 = torch.stack([ctxs[(order - 1) - l][1] for l in levels[:-1]])
+                gk1 = torch.cat([gk1.reshape(-1), ck1.reshape(-1)])
+                gk2 = torch.cat([gk2.reshape(-1), ck2.reshape(-1)])
+            v, b_, f = self._lookup(gk1, gk2, self.unk_logp)
+            gshape = (len(levels),) + probe_w.shape
+            vg, fg = v[:ng].view(gshape), f[:ng].view(gshape)
+            if order > 2:
+                bows_hi, fcs_hi = b_[ng:].view(ck1.shape), f[ng:].view(ck1.shape)
             if probe_w.shape[-1] < H:
                 pad = H - probe_w.shape[-1]
                 vg = torch.nn.functional.pad(vg, (0, pad))
                 fg = torch.nn.functional.pad(fg, (0, pad))  # False → backoff chain
-            # context-backoff probes: suffix lengths order−1..2 via the table,
-            # length 1 via the dense unigram backoff
-            if order > 2:
-                ck1 = torch.stack([ctxs[(order - 1) - l][0] for l in levels[:-1]])
-                ck2 = torch.stack([ctxs[(order - 1) - l][1] for l in levels[:-1]])
-                _, bows_hi, fcs_hi = _lookup(self.table, ck1, ck2, 0.0)
             last = context[..., order - 2].clamp(min=0)
             bow1 = self.uni_bow[last][..., None]
             exists1 = (self.uni_logp[last] > MISSING / 2)[..., None]
@@ -528,3 +553,48 @@ class DeviceNGram:
     def logp(self, context: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
         """log P(word | context): context (..., order-1), word (...) → (...)."""
         return self.logp_words(context, word[..., None])[..., 0]
+
+
+@dataclass
+class ShardedNGram(DeviceNGram):
+    """A ``DeviceNGram`` whose bucket table is ROW-SHARDED over a process
+    group of D ranks: the capacity design for reference-scale LMs (the
+    reference's ~300 GB-RAM SRILM 5-gram becomes bucket rows split D ways).
+
+    ``table`` is this rank's block: the n_buckets/D consecutive bucket rows
+    [r·n/D, (r+1)·n/D) (the high bits of the bucket id pick the owner). A
+    probe all-gathers the keys of every rank over ``group``, answers the
+    keys this rank owns from its block (zero rows for the others), sums the
+    rows over the group with a reduce-scatter, which leaves each rank the
+    sum of its own keys' rows, and matches them. A key's row comes from its
+    one owner plus zero rows, so the probe equals the unsharded one bit for
+    bit. Every rank of the group must probe the same number of times with
+    keys of the same shapes (``decode/lmbeam_device.py``'s
+    ``sharded_decode_batch`` sees to it)."""
+
+    group: object = None
+
+    def _lookup(self, h1: torch.Tensor, h2: torch.Tensor, not_found: float):
+        import torch.distributed as dist
+
+        from ..parallel.comm import gather_rows, reduce_scatter_rows
+
+        shard, cap = self.table
+        D, r = dist.get_world_size(self.group), dist.get_rank(self.group)
+        local_n = shard.shape[0]
+        h1 = _nonzero_key(h1, h2)
+        all_h1 = gather_rows(h1, self.group)                  # (D, ...): every rank's keys
+        bucket = all_h1 & (local_n * D - 1)
+        mine = (bucket // local_n) == r
+        rows = shard[torch.where(mine, bucket % local_n, 0)]  # local gather
+        rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                device=rows.device))
+        rows = reduce_scatter_rows(rows, self.group)          # my keys' rows
+        return _match(rows, cap, h1, h2, not_found)
+
+    @classmethod
+    def from_device_ngram(cls, dev: DeviceNGram, shard: torch.Tensor, group) -> "ShardedNGram":
+        """The view of ``dev`` whose table is this rank's block ``shard``."""
+        return cls(order=dev.order, n_words=dev.n_words, table=(shard, dev.table[1]),
+                   uni_logp=dev.uni_logp, uni_bow=dev.uni_bow, unk_logp=dev.unk_logp,
+                   n_entries=dev.n_entries, group=group)

@@ -14,7 +14,7 @@ LambdaLR do.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Mapping, Tuple, Union
 
 import torch
 from torch import nn
@@ -67,11 +67,18 @@ def param_label(name: str) -> str:
     return "other"
 
 
-def make_optimizer(cfg: TrainConfig, model: nn.Module) -> Tuple[torch.optim.AdamW, Dict[str, Schedule]]:
+def _named(params: Union[nn.Module, Mapping[str, torch.Tensor]]):
+    return params.named_parameters() if isinstance(params, nn.Module) else params.items()
+
+
+def make_optimizer(cfg: TrainConfig, model: Union[nn.Module, Mapping[str, torch.Tensor]]
+                   ) -> Tuple[torch.optim.AdamW, Dict[str, Schedule]]:
     """AdamW over three param groups (each tagged with its ``label``) and
-    the schedule of each label. Clipping is ``clip_by_global_norm_``."""
+    the schedule of each label. ``model``: a module, or named tensors (a
+    rank's parameter shards, ``parallel.dp``). Clipping is
+    ``clip_by_global_norm_``."""
     groups: Dict[str, list] = {"bias": [], "day": [], "other": []}
-    for name, p in model.named_parameters():
+    for name, p in _named(model):
         groups[param_label(name)].append(p)
     decay = {"bias": 0.0, "day": cfg.weight_decay_day, "other": cfg.weight_decay}
     opt = torch.optim.AdamW(

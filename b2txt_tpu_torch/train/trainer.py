@@ -13,8 +13,16 @@ through K1 forward and K2 backward on the card. Data comes from the HDF5
 sessions named by the config, as in the JAX package, or from trials in
 memory (``train_trials`` / ``val_trials``), which need neither h5py nor
 files. Randomness (augmentation, dropout) comes from one ``torch.Generator``
-on the device, seeded with ``cfg.seed``. No mesh: data parallelism waits
-for the port of ``parallel/``.
+on the device, seeded with ``cfg.seed``.
+
+``mesh=`` (a ("data", "model") ``DeviceMesh`` from ``parallel.make_mesh``,
+one process per mesh position) trains with ``parallel.dp``'s sharded step:
+every rank draws the same global batch from the loader (same seed) and
+takes its rows; the GRU gate tensors and their AdamW moments stay sharded
+over "model". Validation and checkpoints first gather the full parameters
+into ``self.model`` on every rank, so validation is the unsharded one on
+the same parameters; rank 0 writes the checkpoint (the same pickle,
+optimizer moments gathered whole) while the other ranks wait at a barrier.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.hdf5_store import Trial, train_test_split_indices
 from ..data.loader import BatchLoader, prefetch_iterator
@@ -67,16 +76,29 @@ class Trainer:
         device: Optional[Union[str, torch.device]] = None,
         train_trials: Optional[Dict[int, List[Trial]]] = None,
         val_trials: Optional[Dict[int, List[Trial]]] = None,
+        mesh=None,
     ):
-        """``device=None`` trains on the CUDA card (and raises without one).
-        ``train_trials`` / ``val_trials``: {day: [Trial, ...]} in memory,
-        in place of ``cfg.dataset``'s HDF5 sessions."""
+        """``device=None`` trains on the CUDA card (and raises without one;
+        with a mesh, on ``cuda:{current_device}``). ``train_trials`` /
+        ``val_trials``: {day: [Trial, ...]} in memory, in place of
+        ``cfg.dataset``'s HDF5 sessions. ``mesh``: a ("data", "model")
+        ``DeviceMesh`` for the sharded step; cfg.dataset.batch_size must be
+        divisible by its data axis."""
+        # parallel.dp imports train.optimizer: imported here, not at the top
+        from ..parallel import dp, mesh_device
+
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh_device(device)
+        self.rank = 0 if mesh is None else dist.get_rank()
         self.logger = logger or make_logger(
             "b2txt_tpu_torch.train",
-            os.path.join(cfg.output_dir, "training_log") if cfg.mode == "train" else None,
+            os.path.join(cfg.output_dir, "training_log")
+            if cfg.mode == "train" and self.rank == 0 else None,
         )
+        if mesh is not None and cfg.dataset.batch_size % mesh["data"].size():
+            raise ValueError(f"batch_size {cfg.dataset.batch_size} not divisible by "
+                             f"data axis {mesh['data'].size()}")
         if cfg.mode == "train":
             os.makedirs(cfg.output_dir, exist_ok=True)
         if cfg.save_best_checkpoint or cfg.save_all_val_steps or cfg.save_final_model:
@@ -107,7 +129,7 @@ class Trainer:
             train_idx = _in_memory_indices(train_trials)
             val_idx = _in_memory_indices(val_trials or {d: [] for d in train_trials})
 
-        if cfg.mode == "train":
+        if cfg.mode == "train" and self.rank == 0:
             with open(os.path.join(cfg.output_dir, "train_val_trials.json"), "w") as f:
                 json.dump({"train": train_idx, "val": val_idx}, f)
 
@@ -128,12 +150,22 @@ class Trainer:
                                       transfer_dtype=cfg.feature_transfer_dtype,
                                       trials=val_trials)
 
-        self.optimizer, self.schedules = make_optimizer(cfg, self.model)
         self.train_mask = trainability_mask(cfg, self.model)
         self.step = 0
         self.transform_args = TransformArgs.from_config(cfg.dataset.data_transforms)
         self.compute_dtype = torch.bfloat16 if cfg.use_amp else torch.float32
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.sharded: Optional[dp.ShardedTrainState] = None
+        if mesh is None:
+            self.optimizer, self.schedules = make_optimizer(cfg, self.model)
+        else:
+            self._sharded_step, place_params, self._place_batch = dp.build_sharded_train_step(
+                cfg, self.model.state_dict(), make_optimizer, mesh, self.compute_dtype,
+                self.train_mask, device=self.device)
+            self.sharded = place_params(self.model.state_dict())
+            self.optimizer, self.schedules = self.sharded.optimizer, self.sharded.schedules
+            self.logger.info(f"Sharded training over mesh data={mesh['data'].size()} "
+                             f"model={mesh['model'].size()}")
 
         if cfg.init_from_checkpoint:
             self.load(cfg.init_checkpoint_path)
@@ -164,7 +196,13 @@ class Trainer:
 
     def train_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """One update on a batch of device tensors. Returns (loss, grad_norm)
-        as device scalars; grad_norm is taken after masking, before clipping."""
+        as device scalars; grad_norm is taken after masking, before clipping.
+        With a mesh, ``batch`` is the global batch and this rank takes its
+        rows."""
+        if self.sharded is not None:
+            loss, grad_norm = self._sharded_step(self.sharded, self._place_batch(batch))
+            self.step = self.sharded.step
+            return loss, grad_norm
         logits, adjusted = self._logits(batch, training=True)
         _, loss = self._loss(logits, adjusted, batch)
         self.optimizer.zero_grad(set_to_none=True)
@@ -280,8 +318,16 @@ class Trainer:
                 "val_PERs": val_pers, "val_metrics": val_results}
 
     # ------------------------------------------------------------- validation
+    def _gather_model(self) -> None:
+        """With a mesh: the full parameters into ``self.model`` (a collective)."""
+        if self.sharded is not None:
+            from ..parallel.mesh import gather_params
+
+            self.model.load_state_dict(gather_params(self.sharded.params, self.mesh))
+
     def validation(self, return_logits: bool = False) -> Dict[str, Any]:
         cfg = self.cfg
+        self._gather_model()
         metrics: Dict[str, Any] = {
             "decoded_seqs": [], "true_seq": [], "phone_seq_lens": [],
             "losses": [], "block_nums": [], "trial_nums": [], "day_indicies": [],
@@ -337,18 +383,41 @@ class Trainer:
     # ------------------------------------------------------------ checkpoints
     def save(self, path: str, val_per: float, val_loss: float) -> None:
         """Parameters (reference names), optimizer state, step and metrics;
-        the config goes beside it as args.yaml (which needs PyYAML)."""
-        save_checkpoint(path, self.model.state_dict(), self.optimizer.state_dict(),
-                        self.step, val_per, val_loss)
-        self.cfg.save(os.path.join(self.cfg.checkpoint_dir, "args.yaml"))
-        self.logger.info(f"Saved model to checkpoint: {path}")
+        the config goes beside it as args.yaml (which needs PyYAML). With a
+        mesh every rank gathers, rank 0 writes and the others wait."""
+        if self.sharded is None:
+            opt_state = self.optimizer.state_dict()
+        else:
+            from ..parallel.dp import gather_optimizer_state
+
+            self._gather_model()
+            opt_state = gather_optimizer_state(self.sharded, self.mesh)
+        if self.rank == 0:
+            save_checkpoint(path, self.model.state_dict(), opt_state,
+                            self.step, val_per, val_loss)
+            self.cfg.save(os.path.join(self.cfg.checkpoint_dir, "args.yaml"))
+            self.logger.info(f"Saved model to checkpoint: {path}")
+        if self.sharded is not None:
+            dist.barrier()
 
     def load(self, path: str) -> None:
         ckpt = load_checkpoint(path)
         self.model.load_state_dict(to_tensor_tree(ckpt["params"]))
-        if ckpt.get("opt_state") is not None:
-            self.optimizer.load_state_dict(to_tensor_tree(ckpt["opt_state"]))
+        opt_state = ckpt.get("opt_state")
         self.step = ckpt.get("step", 0)
+        if self.sharded is not None:
+            from ..parallel.dp import shard_optimizer_state
+            from ..parallel.mesh import shard_params
+
+            with torch.no_grad():
+                for name, t in shard_params(self.model.state_dict(), self.mesh).items():
+                    self.sharded.params[name].copy_(t)
+            if opt_state is not None:
+                opt_state = shard_optimizer_state(to_tensor_tree(opt_state), self.sharded,
+                                                  self.mesh)
+            self.sharded.step = self.step
+        if opt_state is not None:
+            self.optimizer.load_state_dict(to_tensor_tree(opt_state))
         self.best_val_per = ckpt.get("val_PER", float("inf"))
         self.best_val_loss = ckpt.get("val_loss", float("inf"))
         self.logger.info(f"Loaded model from checkpoint: {path}")

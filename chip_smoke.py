@@ -62,7 +62,18 @@ then:
 - trains the full-width model (``TrainConfig()`` defaults: bf16, dropout,
   augmentation, batch 64 over 4 days) for 20 steps with the augmentations in
   PyTorch and 5 with the fused kernel, on synthetic trials in memory, and
-  holds one step's gradients through the kernels against the plain path.
+  holds one step's gradients through the kernels against the plain path;
+- runs the sharded paths (``b2txt_tpu_torch.parallel``) over a 1-rank NCCL
+  group joined in this process (one card: NCCL refuses two ranks on one
+  GPU): ``sharded_decode`` (the connected world's 512 posteriors through
+  ``sharded_decode_batch``, bit for bit against ``decode_batch``),
+  ``opt_tp`` (``OPTRescorer(mesh=...)`` on the 6.7b weights against the
+  unsharded rescorer), ``parallel_forward`` (``build_sharded_forward`` at
+  full width, B = 128, bit for bit against ``GRUDecoder``) and
+  ``parallel_train`` (5 steps of ``Trainer(mesh=...)`` beside 5 unsharded
+  ones, within 1e-6); then ``parallel_two_ranks``: two ranks on the card
+  over gloo at the CPU tests' tiny width (the sharded step at model = 2, the
+  13-word world's sharded decode at D = 2).
 
 Prints one JSON line per phase, then a line of kernel figures
 (``{"kernels": [...]}``), the card's name and power limit, and as the last
@@ -212,6 +223,15 @@ SPELLING_DEMO_RESULT = 20
 LADDER_GAINS = (15.0, 20.0, 25.0, 35.0, 45.0)
 LADDER_BLANK_BIAS, LADDER_UTTS, LADDER_BATCH = 12.0, 128, 64
 LADDER_LATTICE_GAINS, LADDER_LATTICE_UTTS, LADDER_LATTICE_WIDTH = (25.0, 45.0), 32, 512
+# the sharded paths over a 1-rank NCCL group (one card): the collective
+# timeout; the sharded forward's batch; the sharded steps beside the unsharded
+# ones, noise and dropout off, held to 1e-6 relative (the same kernels and
+# ops on the same inputs: the world-size-1 collectives are copies)
+PARALLEL_TIMEOUT_S = 300
+PARALLEL_FORWARD_B = 128
+PARALLEL_TRAIN_STEPS, PARALLEL_TRAIN_TOL = 5, 1e-6
+COLLECTIVE_PROBE_CALLS = 200
+BUSY_CYCLES = 100_000_000   # torch.cuda._sleep: ~50 ms of a busy card
 
 
 def emit(obj) -> None:
@@ -2305,6 +2325,424 @@ def phase_quality_ladder(world, counters):
     return fig
 
 
+# ----------------------------------------------------------------- sharded paths
+def join_nccl_group():
+    """A 1-rank NCCL group in this process (a file:// rendezvous in a fresh
+    directory) and its ("data", "model") mesh of (1, 1). Prints the torch
+    and NCCL versions."""
+    import tempfile
+
+    import torch
+
+    from b2txt_tpu_torch.parallel import make_mesh
+    from b2txt_tpu_torch.parallel.launch import init_group
+
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    init_group("nccl", 1, 0, f"file://{rendezvous}/rendezvous", PARALLEL_TIMEOUT_S)
+    mesh = make_mesh(1, model_parallel=1)
+    # what one collective costs the host: 4-byte all-reduces back to back
+    # against as many one-element adds (a kernel launch each)
+    x = torch.ones(1, device="cuda")
+    costs = {}
+    for name, op in (("all_reduce", lambda: torch.distributed.all_reduce(
+            x, group=mesh.get_group("data"))), ("add_", lambda: x.add_(0))):
+        for _ in range(20):
+            op()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COLLECTIVE_PROBE_CALLS):
+            op()
+        torch.cuda.synchronize()
+        costs[name] = (time.perf_counter() - t0) * 1e3 / COLLECTIVE_PROBE_CALLS
+    # ... and behind a busy card: does the call return before the card
+    # reaches it, as an enqueue does?
+    behind = {}
+    for name, op in (("all_reduce", lambda: torch.distributed.all_reduce(
+            x, group=mesh.get_group("data"))), ("add_", lambda: x.add_(0))):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(BUSY_CYCLES)
+        t0 = time.perf_counter()
+        op()
+        behind[name] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(BUSY_CYCLES)
+    torch.cuda.synchronize()
+    emit({"phase": "nccl_group", "torch": torch.__version__,
+          "nccl": ".".join(map(str, torch.cuda.nccl.version())), "world_size": 1,
+          "rendezvous": "file://", "host_ms_per_call": costs,
+          "calls": COLLECTIVE_PROBE_CALLS, "clock": "host, back to back, ending in a sync",
+          "host_ms_behind_busy_card": behind,
+          "busy_ms": (time.perf_counter() - t0) * 1e3})
+    return mesh
+
+
+def collective_counts(run):
+    """One call under torch.profiler: the host-side collective records
+    (keys naming nccl or c10d) and the device rows naming nccl, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    host, device = {}, {}
+    for e in prof.key_averages():
+        key = e.key.lower()
+        on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
+        if "nccl" in key or (not on_device and key.startswith("c10d::")):
+            (device if on_device else host)[e.key[:60]] = e.count
+    return host, device
+
+
+def phase_sharded_decode(world, mesh):
+    """The connected world's 512 posteriors in batches of 128 through
+    ``sharded_decode_batch`` on the 1-rank mesh, beside ``decode_batch``:
+    every n-best equal bit for bit, 512/512 exact, the rank's table block
+    the unsharded table's bytes; the collectives of one batch by profile."""
+    searcher = world["searcher"]
+    host_lp, sents = world["posteriors"]
+    batches = []
+    for lo in range(0, len(host_lp), CONNECTED_BATCH):
+        chunk = host_lp[lo:lo + CONNECTED_BATCH]
+        arr = np.zeros((len(chunk), max(a.shape[0] for a in chunk), 41), np.float32)
+        for i, a in enumerate(chunk):
+            arr[i, : a.shape[0]] = a
+        batches.append((arr, np.asarray([a.shape[0] for a in chunk], np.int32)))
+
+    def run(fn):
+        t0 = time.perf_counter()
+        outs = [r for arr, lens in batches for r in fn(arr, lens)]
+        return outs, time.perf_counter() - t0
+
+    def sharded(arr, lens):
+        return searcher.sharded_decode_batch(arr, lens, mesh=mesh, axis="data")
+
+    sharded(*batches[0])   # warm-up: NCCL's communicators
+    got, sharded_s = run(sharded)
+    ref, single_s = run(searcher.decode_batch)
+    nbest = lambda rs: [[(x.sentence, x.ac_score, x.lm_score) for x in r] for r in rs]  # noqa: E731
+    equal = sum(a == b for a, b in zip(nbest(got), nbest(ref)))
+    exact = sum(bool(r) and r[0].sentence == s for r, s in zip(got, sents))
+    # collectives a frame: the first batch cut to 1 and to 3 frames under the
+    # profiler (a whole batch is ~77,000 launches, minutes of trace
+    # processing); the same finalize and pool gathers in both
+    cut = {}
+    for k in (1, 3):
+        lens_k = np.minimum(batches[0][1], k)
+        lp, lengths, _ = searcher._prep_batch(batches[0][0], lens_k)
+        cut[k] = (min(lp.shape[1], int(lengths.max())),
+                  *collective_counts(lambda: sharded(batches[0][0], lens_k)))
+    (f1, host1, dev1), (f3, host3, dev3) = cut[1], cut[3]
+    per_frame = {"host": {k: (host3[k] - host1.get(k, 0)) / (f3 - f1) for k in host3},
+                 "device": {k: (dev3[k] - dev1.get(k, 0)) / (f3 - f1) for k in dev3}}
+    block, full = searcher.sharded_lm.table[0], searcher.dev_lm.table[0]
+    fig = {"phase": "sharded_decode", "world_size": 1, "backend": "nccl",
+           "requests": len(sents), "batch": CONNECTED_BATCH, "vocab": CONNECTED_VOCAB,
+           "exact": exact, "nbest_equal_to_decode_batch": equal,
+           "table_bytes_rank": block.numel() * block.element_size(),
+           "table_bytes_unsharded": full.numel() * full.element_size(),
+           "sentences_per_s_sharded": len(sents) / sharded_s,
+           "sentences_per_s_decode_batch": len(sents) / single_s,
+           "clock": "host, around the 4 batches (each ends in its n-best on the host)",
+           "profiled_frames": [f1, f3], "collectives_host_records": [host1, host3],
+           "collective_device_rows": [dev1, dev3], "collectives_per_frame": per_frame,
+           "collectives_expected_per_frame": 2,
+           "collectives_expected_per_frame_is": "one probe a frame (the gram and "
+           "context-backoff keys together): an all-gather of keys and a reduce-scatter "
+           "of rows; the finalize adds 3 probes and the pool 2 all-gathers"}
+    fig["ok"] = (exact == len(sents) and equal == len(sents)
+                 and fig["table_bytes_rank"] == fig["table_bytes_unsharded"])
+    emit(fig)
+    return fig
+
+
+def phase_opt_tp(params, mesh):
+    """OPTRescorer(mesh=(1, 1)) on the OPT phases' 6.7b weights against the
+    unsharded rescorer: 8 lists of 100 candidates packed, and with the
+    48-word context (prefix-KV)."""
+    import torch
+
+    from b2txt_tpu_torch.decode.opt_lm import OPTConfig, OPTRescorer, word_hash_encode
+
+    cfg = OPTConfig.opt_6_7b()
+    enc = word_hash_encode(cfg.vocab_size)
+    cont = lambda t, n: enc(t, n + 1)[1:]  # noqa: E731
+    lists, context = opt_texts()
+    figs = {}
+    for name, m in (("unsharded", None), ("mesh", mesh)):
+        kw = dict(params=params, encode=enc, device="cuda", compute_dtype=torch.bfloat16,
+                  mesh=m)
+        packed_s, packed = timed_lists(OPTRescorer(cfg, max_len=OPT_MAX_LEN, **kw), lists)
+        prefix = OPTRescorer(cfg, max_len=512, encode_cont=cont, **kw)
+        prefix_s, ctx = timed_lists(prefix, lists, context=context)
+        resc = OPTRescorer(cfg, max_len=OPT_MAX_LEN, **kw)
+        figs[name] = {"packed": packed, "context": ctx, "s_per_list_packed": packed_s,
+                      "s_per_list_prefix_kv": prefix_s, "prefix_runs": prefix.prefix_runs,
+                      "profile": profile_call(lambda: resc.score(lists[0]))}
+    a, b = figs["mesh"], figs["unsharded"]
+    fig = {"phase": "opt_tp", "config": "OPTConfig.opt_6_7b(), bf16, mesh (1, 1)",
+           "lists": OPT_LISTS, "nbest": OPT_NBEST, "context_words": OPT_CONTEXT_WORDS,
+           "packed_max_abs": max_abs(a["packed"], b["packed"]), "tol": OPT_BF16_TOL,
+           "context_max_abs": max_abs(a["context"], b["context"]), "prefix_tol": OPT_PREFIX_TOL,
+           **{f"{k}_{name}": figs[name][k] for name in figs
+              for k in ("s_per_list_packed", "s_per_list_prefix_kv")},
+           "profile_one_list": {name: figs[name]["profile"] for name in figs},
+           "all_finite": bool(np.isfinite(a["packed"]).all() and np.isfinite(a["context"]).all())}
+    fig["ok"] = bool(fig["all_finite"] and a["prefix_runs"] > 0
+                     and np.allclose(a["packed"], b["packed"], **OPT_BF16_TOL)
+                     and np.allclose(a["context"], b["context"], **OPT_PREFIX_TOL))
+    emit(fig)
+    return fig
+
+
+def phase_parallel_forward(mesh, counters):
+    """build_sharded_forward at full width in bf16 (GRUDecoder's own init),
+    B = 128 requests of 520 bins, on the 1-rank mesh: the logits equal the
+    module's forward bit for bit, the greedy ids too, K1 5 launches."""
+    import torch
+
+    from b2txt_tpu_torch.models.gru_decoder import GRUDecoder
+    from b2txt_tpu_torch.ops.ctc import greedy_decode_ids
+    from b2txt_tpu_torch.parallel import build_sharded_forward
+
+    cfg, _ = train_config()
+    model = GRUDecoder(cfg.model, 45, 41, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    x = torch.randn((PARALLEL_FORWARD_B, BINS, cfg.model.n_input_features), generator=gen,
+                    device="cuda")
+    day = torch.randint(0, 45, (PARALLEL_FORWARD_B,), generator=gen, device="cuda")
+    fwd, place = build_sharded_forward(cfg, model.state_dict(), mesh, device="cuda")
+    local = place(model.state_dict())
+    fwd(local, x, day)   # warm-up
+    torch.cuda.synchronize()
+    zero(counters)
+    t0 = time.perf_counter()
+    logits, ids = fwd(local, x, day)
+    torch.cuda.synchronize()
+    sharded_ms = (time.perf_counter() - t0) * 1e3
+    launches = counted_launches(counters)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = model(x, day, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        module_ms = (time.perf_counter() - t0) * 1e3
+        ref_ids = greedy_decode_ids(ref.float(), torch.full((ref.shape[0],), ref.shape[1],
+                                                             device="cuda"))
+    fig = {"phase": "parallel_forward", "mesh": [1, 1], "backend": "nccl",
+           "B": PARALLEL_FORWARD_B, "bins": BINS, "dtype": "bfloat16",
+           "logits_shape": list(logits.shape),
+           "logits_bit_equal": bool(torch.equal(logits, ref)),
+           "logits_max_abs": float((logits.float() - ref.float()).abs().max()),
+           "ids_equal": bool(torch.equal(ids, ref_ids)),
+           "finite": bool(torch.isfinite(logits).all()), "launches": launches,
+           "sharded_ms": sharded_ms, "module_ms": module_ms,
+           "clock": "host, one call each, after a warm-up, ending in a sync"}
+    fig["ok"] = (fig["logits_bit_equal"] and fig["ids_equal"] and fig["finite"]
+                 and launches["gru_fwd"] == cfg.model.n_layers)
+    emit(fig)
+    return fig
+
+
+def phase_parallel_train(mesh, counters):
+    """TrainConfig() at full width (bf16), noise and dropout off: 5 steps of
+    Trainer(mesh=(1, 1)) beside 5 of the unsharded Trainer from the same
+    weights and batches; loss, grad_norm and the parameters within 1e-6
+    relative; K1 and K2 counted on the sharded steps."""
+    import torch
+
+    from b2txt_tpu_torch.data.loader import batch_to_device
+    from b2txt_tpu_torch.data.synthetic import synthetic_trials
+    from b2txt_tpu_torch.parallel import gather_params
+    from b2txt_tpu_torch.train import Trainer
+
+    cfg, reduced = train_config()
+    dt = cfg.dataset.data_transforms
+    dt.white_noise_std = dt.constant_offset_std = 0.0
+    cfg.model.rnn_dropout = cfg.model.input_network.input_layer_dropout = 0.0
+    cfg.use_fused_preprocess = False
+    seed = TRAIN_SEED + 997 - hash("train") % 997   # see phase_train's draw()
+    trials = synthetic_trials(cfg.dataset.sessions, trials_per_session=TRIALS_PER_SESSION,
+                              neural_dim=cfg.dataset.neural_dim, seed=seed, split="train",
+                              min_words=9, max_words=13, frames_per_phoneme=8, max_bins=512)
+    runs = {}
+    for name, m in (("sharded", mesh), ("unsharded", None)):
+        trainer = Trainer(cfg, device="cuda", train_trials=trials, mesh=m)
+        batches = [batch_to_device(trainer.train_loader.get_batch(i), "cuda")
+                   for i in range(PARALLEL_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        zero(counters)
+        losses, norms, step_ms = [], [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            loss, norm = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            norms.append(float(norm))
+        launches = counted_launches(counters)
+        params = (gather_params(trainer.sharded.params, mesh) if m is not None
+                  else trainer.model.state_dict())
+        runs[name] = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+                      "launches": launches,
+                      "params": {k: v.detach().float().clone() for k, v in params.items()},
+                      # one more step, after the compared ones
+                      "profile": profile_call(lambda: trainer.train_step(batches[-1]), top=16)}
+        del trainer
+    a, b = runs["sharded"], runs["unsharded"]
+    rel = lambda x, y: float(np.max(np.abs(np.subtract(x, y)) / np.abs(y)))  # noqa: E731
+    param_rel = max(float((a["params"][k] - b["params"][k]).abs().max()
+                          / b["params"][k].abs().max().clamp(min=1e-30)) for k in b["params"])
+    fig = {"phase": "parallel_train", "mesh": [1, 1], "backend": "nccl",
+           "config": "TrainConfig() defaults, white noise, offset and dropout off, "
+                     "transform_data (no K3)", "reduced": reduced,
+           "steps": PARALLEL_TRAIN_STEPS, "use_amp": cfg.use_amp,
+           "batch_size": cfg.dataset.batch_size,
+           "loss_rel": rel(a["losses"], b["losses"]),
+           "grad_norm_rel": rel(a["grad_norms"], b["grad_norms"]), "param_rel": param_rel,
+           "tol_rel": PARALLEL_TRAIN_TOL, "losses": a["losses"],
+           "step_ms_sharded": a["step_ms"], "step_ms_unsharded": b["step_ms"],
+           "ms_per_step_sharded": float(np.mean(a["step_ms"][1:])),
+           "ms_per_step_unsharded": float(np.mean(b["step_ms"][1:])),
+           "ms_per_step_over": f"steps 1..{PARALLEL_TRAIN_STEPS - 1}",
+           "launches_sharded": a["launches"], "launches_unsharded": b["launches"],
+           "profile_one_step": {"sharded": a["profile"], "unsharded": b["profile"]},
+           "clock": "host, per step, ending in a sync"}
+    fig["ok"] = (max(fig["loss_rel"], fig["grad_norm_rel"], param_rel) <= PARALLEL_TRAIN_TOL
+                 and all(np.isfinite(a["losses"]))
+                 and a["launches"]["gru_fwd"] == PARALLEL_TRAIN_STEPS * cfg.model.n_layers
+                 and a["launches"]["gru_bwd"] == PARALLEL_TRAIN_STEPS * cfg.model.n_layers)
+    emit(fig)
+    return fig
+
+
+TWO_RANK_LEX = {
+    "the": ["DH", "AH"], "cat": ["K", "AE", "T"], "sat": ["S", "AE", "T"],
+    "mat": ["M", "AE", "T"], "on": ["AA", "N"], "dog": ["D", "AO", "G"],
+    "a": ["AH"], "and": ["AE", "N", "D"], "saw": ["S", "AO"],
+    "their": ["DH", "EH", "R"], "there": ["DH", "EH", "R"],
+    "rug": ["R", "AH", "G"], "is": ["IH", "Z"],
+}
+TWO_RANK_CORPUS = [
+    "the cat sat on the mat".split(), "the dog sat on the rug".split(),
+    "a cat and a dog is there".split(), "the cat saw their dog".split(),
+    "there is a dog on the mat".split(),
+] * 3
+
+
+def two_rank_body(sd, batch, arr, lens):
+    """One of two ranks on cuda:0 over gloo: the tiny sharded step at model
+    = 2, and the 13-word world's sharded decode at D = 2."""
+    import torch
+
+    from b2txt_tpu_torch.decode.lmbeam_device import DeviceLexiconBeamSearch
+    from b2txt_tpu_torch.lm import Lexicon, train_ngram
+    from b2txt_tpu_torch.parallel import (build_sharded_train_step, gather_params,
+                                          make_mesh)
+    from b2txt_tpu_torch.train.optimizer import make_optimizer
+    from b2txt_tpu_torch.utils.config import DecodeConfig
+
+    cfg = two_rank_cfg()
+    mesh = make_mesh(2, model_parallel=2)
+    step, place_params, place_batch = build_sharded_train_step(cfg, sd, make_optimizer, mesh,
+                                                               device="cuda:0")
+    state = place_params(sd)
+    figs = [step(state, place_batch(batch)) for _ in range(2)]
+    full = gather_params(state.params, mesh)
+    out = {"loss": [float(f[0]) for f in figs], "grad_norm": [float(f[1]) for f in figs],
+           "w_hh": [full[f"gru.weight_hh_l{k}"].cpu().numpy() for k in range(2)]}
+    mesh = make_mesh(2, model_parallel=1)
+    dev = DeviceLexiconBeamSearch(
+        Lexicon.from_words(TWO_RANK_LEX), train_ngram(TWO_RANK_CORPUS, order=3),
+        DecodeConfig(acoustic_scale=0.325, blank_penalty=9.0, nbest=10, beam_width=48,
+                     first_beam_size=8, sum_mode=False), device="cuda:0")
+    got = dev.sharded_decode_batch(arr, lens, mesh=mesh, axis="data")
+    out["decode"] = [[(x.sentence, x.ac_score, x.lm_score) for x in r] for r in got]
+    out["decode_single"] = [[(x.sentence, x.ac_score, x.lm_score) for x in r]
+                            for r in dev.decode_batch(arr, lens)]
+    torch.cuda.synchronize()
+    return out
+
+
+def two_rank_cfg():
+    """tests/test_torch_parallel.py's quiet tiny config."""
+    from b2txt_tpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig()
+    cfg.model.n_input_features, cfg.model.n_units, cfg.model.n_layers = 16, 32, 2
+    cfg.model.rnn_dropout = cfg.model.input_network.input_layer_dropout = 0.0
+    dt = cfg.dataset.data_transforms
+    dt.random_cut, dt.white_noise_std, dt.constant_offset_std = 0, 0.0, 0.0
+    cfg.epsilon = 1e-8
+    cfg.lr_warmup_steps = cfg.lr_warmup_steps_day = 0
+    return cfg
+
+
+def phase_parallel_two_ranks():
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    GPU), at the CPU tests' tiny width: the sharded step at model = 2 against
+    the unsharded Trainer step, and the 13-word world's sharded decode at
+    D = 2 against decode_batch, with the CPU tests' gates."""
+    import tempfile
+
+    import torch
+
+    from b2txt_tpu_torch.data.synthetic import ctc_logprobs, synthetic_trials
+    from b2txt_tpu_torch.lm import Lexicon
+    from b2txt_tpu_torch.models.gru_decoder import GRUDecoder
+    from b2txt_tpu_torch.parallel import spawn
+    from b2txt_tpu_torch.train import Trainer
+
+    cfg = two_rank_cfg()
+    sd = {k: v.cpu() for k, v in GRUDecoder(cfg.model, 3, 41, device="cpu").state_dict().items()}
+    rng = np.random.default_rng(0)
+    batch = {"input_features": torch.from_numpy(rng.standard_normal((8, 64, 16), np.float32)),
+             "seq_class_ids": torch.from_numpy(rng.integers(1, 41, (8, 12), dtype=np.int32)),
+             "n_time_steps": torch.full((8,), 64, dtype=torch.int32),
+             "phone_seq_lens": torch.from_numpy(rng.integers(4, 13, (8,), dtype=np.int32)),
+             "day_indicies": torch.from_numpy(rng.integers(0, 3, (8,), dtype=np.int32))}
+    lexicon = Lexicon.from_words(TWO_RANK_LEX)
+    sents = ["the cat sat on the mat", "there is a dog on the mat", "the cat saw their dog",
+             "a cat and a dog is there", "the dog sat on the rug", "the cat sat on the rug",
+             "there is a dog", "a dog saw the cat"]
+    lrng = np.random.default_rng(3)
+    utts = [ctc_logprobs(lrng, lexicon.sentence_to_phonemes(s), hot=10.0, noise=0.3)
+            for s in sents]
+    arr = np.full((len(utts), max(u.shape[0] for u in utts), 41), -20.0, np.float32)
+    lens = np.asarray([u.shape[0] for u in utts], np.int32)
+    for i, u in enumerate(utts):
+        arr[i, : u.shape[0]] = u
+    t0 = time.perf_counter()
+    ranks = spawn(two_rank_body, 2, args=(sd, batch, arr, lens), backend="gloo",
+                  timeout_s=PARALLEL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    # the unsharded step on the card, from the same weights and batch
+    cfg.dataset.sessions = ["a", "b", "c"]
+    cfg.dataset.days_per_batch, cfg.use_amp, cfg.num_training_batches = 2, False, 2
+    cfg.output_dir = cfg.checkpoint_dir = tempfile.mkdtemp(prefix="chip_smoke_two_ranks_")
+    trials = synthetic_trials(cfg.dataset.sessions, trials_per_session=4, neural_dim=16)
+    trainer = Trainer(cfg, device="cuda", train_trials=trials)
+    trainer.model.load_state_dict(sd)
+    single = [trainer.train_step({k: v.cuda() for k, v in batch.items()}) for _ in range(2)]
+    r0 = ranks[0]
+    w_hh = [trainer.model.state_dict()[f"gru.weight_hh_l{k}"].cpu().numpy() for k in range(2)]
+    fig = {"phase": "parallel_two_ranks", "ranks": 2, "backend": "gloo", "device": "cuda:0",
+           "step_mesh": [1, 2], "decode_D": 2,
+           "loss": r0["loss"], "loss_single": [float(s[0]) for s in single],
+           "grad_norm": r0["grad_norm"], "grad_norm_single": [float(s[1]) for s in single],
+           "w_hh_max_abs": max(float(np.abs(a - b).max()) for a, b in zip(r0["w_hh"], w_hh)),
+           "decode_equal": all(r["decode"] == r["decode_single"] for r in ranks),
+           "ranks_agree": all(r["decode"] == r0["decode"] for r in ranks), "wall_s": wall}
+    fig["ok"] = bool(np.allclose(fig["loss"], fig["loss_single"], rtol=1e-5, atol=0)
+                     and np.allclose(fig["grad_norm"], fig["grad_norm_single"], rtol=1e-5, atol=0)
+                     and all(np.allclose(a, b, rtol=1e-4, atol=1e-6)
+                             for a, b in zip(r0["w_hh"], w_hh))
+                     and fig["decode_equal"] and fig["ranks_agree"])
+    emit(fig)
+    return fig
+
+
 def kernel_entry(name, route, source, replaces, launches, launches_per, k, shape_keys):
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "launches_per": launches_per,
@@ -2393,6 +2831,15 @@ def main() -> int:
     ladder_fig = phase_quality_ladder(conn_world, {"gru_fwd": gru_layer_forward})
     if not ladder_fig["ok"]:
         problems.append(f"quality_ladder: {ladder_fig['problems']}")
+    # the sharded paths: one NCCL group of this process, until the train phase ends
+    phase_s = {}
+    t0 = time.perf_counter()
+    mesh = join_nccl_group()
+    sharded_fig = phase_sharded_decode(conn_world, mesh)
+    phase_s["nccl_group+sharded_decode"] = time.perf_counter() - t0
+    if not sharded_fig["ok"]:
+        problems.append(f"sharded_decode: {sharded_fig['exact']} exact, "
+                        f"{sharded_fig['nbest_equal_to_decode_batch']} n-best equal")
     # OPT-6.7b's 13.3 GB of bf16 weights, drawn on the card from a seed; the
     # connected world leaves the card after the finalize, the weights after
     # the rescore phases
@@ -2411,6 +2858,11 @@ def main() -> int:
     resc_fig = phase_opt_rescore(opt_params)
     if not resc_fig["ok"]:
         problems.append(f"opt_rescore: {resc_fig}")
+    t0 = time.perf_counter()
+    tp_fig = phase_opt_tp(opt_params, mesh)
+    phase_s["opt_tp"] = time.perf_counter() - t0
+    if not tp_fig["ok"]:
+        problems.append(f"opt_tp: {tp_fig}")
     examples_fig = phase_examples(opt_params, {"gru_fwd": gru_layer_forward,
                                                "gru_bwd": gru_layer_backward})
     if not examples_fig["ok"]:
@@ -2420,6 +2872,21 @@ def main() -> int:
     train_fig = phase_train({"gru_fwd": gru_layer_forward, "gru_bwd": gru_layer_backward,
                              "fused_preprocess": fused_preprocess})
     problems += check_train(train_fig, cfg.model.n_layers)
+    t0 = time.perf_counter()
+    pfwd_fig = phase_parallel_forward(mesh, {"gru_fwd": gru_layer_forward})
+    if not pfwd_fig["ok"]:
+        problems.append(f"parallel_forward: {pfwd_fig}")
+    ptrain_fig = phase_parallel_train(mesh, {"gru_fwd": gru_layer_forward,
+                                             "gru_bwd": gru_layer_backward})
+    if not ptrain_fig["ok"]:
+        problems.append(f"parallel_train: {ptrain_fig}")
+    torch.distributed.destroy_process_group()
+    two_fig = phase_parallel_two_ranks()
+    phase_s["parallel_forward+parallel_train+parallel_two_ranks"] = time.perf_counter() - t0
+    emit({"phase": "parallel_phases", "s": phase_s, "total_s": sum(phase_s.values()),
+          "clock": "host"})
+    if not two_fig["ok"]:
+        problems.append(f"parallel_two_ranks: {two_fig}")
     if problems:
         raise RuntimeError("; ".join(problems))
 
@@ -2433,7 +2900,9 @@ def main() -> int:
                      "b2txt_tpu/ops/pallas/gru.py:32",
                      fig["launches"]["gru_fwd"] + cli_fig["launches_total"]["gru_fwd"]
                      + examples_fig["launches_total"]["gru_fwd"]
-                     + sum(n["gru_fwd"] for n in ladder_fig["launches_per_gain"]),
+                     + sum(n["gru_fwd"] for n in ladder_fig["launches_per_gain"])
+                     + pfwd_fig["launches"]["gru_fwd"]
+                     + ptrain_fig["launches_sharded"]["gru_fwd"],
                      f"serve run: {fig['batches']} forward batch of {N_REQUESTS} requests "
                      f"({fig['launches']['gru_fwd']}); cli runs: "
                      + ", ".join(f"{k} {v['gru_fwd']}" for k, v in cli_fig["launches"].items())
@@ -2441,16 +2910,22 @@ def main() -> int:
                      f"{STREAM_WARMUP + STREAM_HOPS} hops in f32 and bf16, quickstart, "
                      f"figures); quality ladder "
                      f"{sum(n['gru_fwd'] for n in ladder_fig['launches_per_gain'])} "
-                     f"({len(LADDER_GAINS)} gains x {LADDER_UTTS // LADDER_BATCH} batches)",
+                     f"({len(LADDER_GAINS)} gains x {LADDER_UTTS // LADDER_BATCH} batches); "
+                     f"parallel_forward {pfwd_fig['launches']['gru_fwd']}, parallel_train "
+                     f"{ptrain_fig['launches_sharded']['gru_fwd']} ({PARALLEL_TRAIN_STEPS} "
+                     f"sharded steps)",
                      k_fwd, ("B", "T", "H", "dtype", "weights")),
         kernel_entry("gru_bwd", "cuda", "b2txt_tpu_torch/csrc/gru_bwd.cu",
                      "b2txt_tpu/ops/pallas/gru.py:122",
                      runs["transform_data"]["launches"]["gru_bwd"]
-                     + examples_fig["launches_total"]["gru_bwd"],
+                     + examples_fig["launches_total"]["gru_bwd"]
+                     + ptrain_fig["launches_sharded"]["gru_bwd"],
                      f"train run: {TRAIN_STEPS} steps "
                      f"({runs['transform_data']['launches']['gru_bwd']}); examples: "
                      f"quickstart {QUICKSTART_STEPS} steps, figures {FIGURES_STEPS} steps "
-                     f"({examples_fig['launches_total']['gru_bwd']})", k_bwd,
+                     f"({examples_fig['launches_total']['gru_bwd']}); parallel_train "
+                     f"{PARALLEL_TRAIN_STEPS} sharded steps "
+                     f"({ptrain_fig['launches_sharded']['gru_bwd']})", k_bwd,
                      ("B", "T", "H", "dtype", "weights")),
         kernel_entry("fused_preprocess", "cuda", "b2txt_tpu_torch/csrc/preprocess.cu",
                      "b2txt_tpu/ops/pallas/preprocess.py:51",

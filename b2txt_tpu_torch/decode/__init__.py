@@ -11,3 +11,11 @@ from .rescore import (
     llm_rescore_async,
     rescore_nbest_with_ngram,
 )
+
+
+def device_lexicon_beam_search(*args, **kwargs):
+    """Lazy constructor for the device-resident searcher
+    (``lmbeam_device.DeviceLexiconBeamSearch``)."""
+    from .lmbeam_device import DeviceLexiconBeamSearch
+
+    return DeviceLexiconBeamSearch(*args, **kwargs)

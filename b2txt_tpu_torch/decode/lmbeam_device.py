@@ -83,6 +83,31 @@ def _key64(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
     return (k1 ^ _INT32_MIN).long() * (1 << 32) + (k2.long() & 0xFFFFFFFF)
 
 
+def _seg_merge4(sc: torch.Tensor, starts: torch.Tensor, sum_mode: bool):
+    """The segmented merge of the candidates' four score columns (s, ns,
+    ac_s, ac_ns), ``sc`` (B*N, 4) in sorted order, whose segments begin
+    where ``starts`` (B, N) is True: max for Viterbi and the acoustic
+    columns, log-sum-exp of the ranking columns in ``sum_mode``. Returns
+    (merged (B*N, 4) by segment, the ranking total of each segment (B*N,),
+    each candidate's segment (B*N,))."""
+    B, N = starts.shape
+    dev = sc.device
+    seg = (starts.cumsum(1) - 1
+           + torch.arange(B, device=dev)[:, None] * N).reshape(-1)   # (B*N,)
+    merged = torch.full((B * N, 4), -math.inf, dtype=torch.float32, device=dev)
+    merged.scatter_reduce_(0, seg[:, None].expand(-1, 4), sc, "amax")
+    if sum_mode:
+        m = merged[:, :2]
+        m_safe = m.clamp(min=NEG)
+        tot = sorted_segment_sum(torch.exp(sc[:, :2] - m_safe[seg]), seg, B * N)
+        lse = (m_safe + torch.log(tot)).masked_fill(m <= NEG, NEG)
+        merged = torch.cat([lse, merged[:, 2:]], 1)
+        combined = _logaddexp(merged[:, 0], merged[:, 1])
+    else:
+        combined = torch.maximum(merged[:, 0], merged[:, 1])
+    return merged, combined, seg
+
+
 class LmBeamState(NamedTuple):
     """One batch of beams; every field is (B, K, ...)."""
 
@@ -603,25 +628,12 @@ class DeviceLexiconBeamSearch:
         perm = p1.gather(1, p2)
         sc = scores.gather(1, perm[..., None].expand(B, N, 4)).reshape(B * N, 4)
 
-        # ---- merge each segment: max for Viterbi and the acoustic columns,
-        # log-sum-exp for the ranking columns in sum_mode
+        # ---- merge each segment
         starts = torch.ones((B, N), dtype=torch.bool, device=dev)
         starts[:, 1:] = key_s[:, 1:] != key_s[:, :-1]
         seg_end = torch.ones((B, N), dtype=torch.bool, device=dev)
         seg_end[:, :-1] = starts[:, 1:]
-        seg = (starts.cumsum(1) - 1
-               + torch.arange(B, device=dev)[:, None] * N).reshape(-1)   # (B*N,)
-        merged = torch.full((B * N, 4), -math.inf, dtype=torch.float32, device=dev)
-        merged.scatter_reduce_(0, seg[:, None].expand(-1, 4), sc, "amax")
-        if sum_mode:
-            m = merged[:, :2]
-            m_safe = m.clamp(min=NEG)
-            tot = sorted_segment_sum(torch.exp(sc[:, :2] - m_safe[seg]), seg, B * N)
-            lse = (m_safe + torch.log(tot)).masked_fill(m <= NEG, NEG)
-            merged = torch.cat([lse, merged[:, 2:]], 1)
-            combined = _logaddexp(merged[:, 0], merged[:, 1])
-        else:
-            combined = torch.maximum(merged[:, 0], merged[:, 1])
+        merged, combined, seg = _seg_merge4(sc, starts, sum_mode)
         total = torch.where(seg_end, combined[seg].reshape(B, N), -math.inf)
 
         top_total, top_idx = torch.topk(total, K, dim=1)

@@ -22,11 +22,13 @@ What differs from the JAX module, and why:
   (``parallel/``), not one SPMD program: ``OPTModel(model_parallel=M)``
   holds this rank's column-parallel q/k/v/fc1 rows (heads and FFN units
   M ways) and row-parallel out_proj/fc2 columns, and its forward runs an
-  ``all_reduce`` over the "model" group after out_proj and fc2, adding
-  their biases once, after the sum (``partition_specs``; XLA inserts that
-  reduce on the TPU). ``OPTRescorer(mesh=...)`` also shards its rows over
-  "data": every rank scores the whole list's rows it owns and the
-  per-segment sums (or the rows' sums) meet over the data group.
+  ``all_reduce`` over the "model" group after out_proj and fc2; their
+  biases are added once, by the group's first rank inside its product, so
+  a group of one computes exactly what the unsharded model computes
+  (``partition_specs``; XLA inserts that reduce on the TPU).
+  ``OPTRescorer(mesh=...)`` also shards its rows over "data": every rank
+  scores the whole list's rows it owns and the per-segment sums (or the
+  rows' sums) meet over the data group.
 - Shapes are not bucketed: the JAX rescorer rounds the row count to 8, the
   unpacked length to 16, the segment count to 32 and the context length to
   32 for XLA's compile cache. Eager PyTorch compiles nothing per shape, so
@@ -119,9 +121,9 @@ def partition_specs(cfg: OPTConfig) -> Dict[str, Optional[int]]:
     dimension each tensor splits along, or None (replicated). q/k/v and fc1
     are column-parallel (their (out, in) weights and biases split on dim 0:
     heads and FFN units); out_proj and fc2 are row-parallel (weights split
-    on dim 1, an all_reduce follows, and their biases are added once after
-    it); embeddings and norms replicate. JAX's P(None, "model") on its
-    (in, out) weights is the same split."""
+    on dim 1, an all_reduce follows, and their biases are added once, by
+    the group's first rank before it); embeddings and norms replicate.
+    JAX's P(None, "model") on its (in, out) weights is the same split."""
     specs: Dict[str, Optional[int]] = {name: None for name in param_shapes(cfg)}
     for i in range(cfg.num_layers):
         p = f"model.decoder.layers.{i}."
@@ -205,6 +207,7 @@ class OPTModel(nn.Module):
         self.cfg = cfg
         self.model_parallel = model_parallel
         self.tp_group = None
+        self.tp_rank = 0
         self.model = _Body(cfg, device, dtype, model_parallel)
         self.lm_head = nn.Module()
         self.tie_weights()
@@ -230,6 +233,7 @@ class OPTModel(nn.Module):
         model = cls(cfg, device="meta", model_parallel=M)
         if mesh is not None:
             model.tp_group = mesh.get_group("model")
+            model.tp_rank = mesh.get_local_rank("model")
         sd = {k: v.to(device) for k, v in sd.items()}
         sd["lm_head.weight"] = sd["model.decoder.embed_tokens.weight"]
         model.load_state_dict(sd, assign=True)
@@ -322,14 +326,17 @@ class OPTModel(nn.Module):
 
     def _row_parallel(self, h: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
         """out_proj / fc2: this rank's partial product summed over the
-        "model" group, then the bias, once."""
+        "model" group. The first rank of the group adds the bias inside its
+        product, so the bias counts once and a group of one runs exactly the
+        unsharded ``_linear``: adding the bias after a bias-free product
+        takes another cuBLAS kernel, whose bf16 sums round differently."""
         if self.tp_group is None:
             return _linear(h, lin, dtype)
         import torch.distributed as dist
 
-        y = F.linear(h, _cast(lin.weight, dtype))
+        y = _linear(h, lin, dtype) if self.tp_rank == 0 else F.linear(h, _cast(lin.weight, dtype))
         dist.all_reduce(y, group=self.tp_group)
-        return y + _cast(lin.bias, dtype)
+        return y
 
 
 def init_params(cfg: OPTConfig, device=None, dtype: torch.dtype = torch.float32,

@@ -106,7 +106,7 @@ def _forward_bucket(
         t_i = feats_list[i].shape[0]
         if dt.smooth_data:
             t_i = t_i - ksize + 1
-        p_is.append((t_i - cfg.model.patch_size) // cfg.model.patch_stride + 1)
+        p_is.append(model.adjusted_lengths(t_i))
     return logits, p_is
 
 

@@ -1,4 +1,4 @@
-from .gru_decoder import GRUDecoder, extract_patches
+from .gru_decoder import GRUDecoder, extract_patches, param_count
 from .torch_import import (
     load_torch_checkpoint,
     params_from_jax,

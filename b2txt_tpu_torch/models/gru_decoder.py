@@ -182,3 +182,16 @@ class GRUDecoder(nn.Module):
         if return_state:
             return logits, torch.stack(finals, dim=0)
         return logits
+
+    def adjusted_lengths(self, n_time_steps):
+        """Output sequence lengths after patching: (T - patch)/stride + 1
+        (rnn_trainer.py:532); int32 for a tensor, an int for an int."""
+        out = (n_time_steps - self.patch_size) // self.patch_stride + 1
+        return out.to(torch.int32) if torch.is_tensor(out) else out
+
+
+def param_count(model) -> int:
+    """The number of parameter values of an ``nn.Module`` (or of a state
+    dict's tensors)."""
+    tensors = model.parameters() if isinstance(model, nn.Module) else model.values()
+    return sum(int(t.numel()) for t in tensors)

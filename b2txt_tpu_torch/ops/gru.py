@@ -199,9 +199,13 @@ def gru_layer_backward(
 
     On CUDA tensors this launches K2 (the same dtype rules as the forward;
     g_out is cast to the dtype, g_hf to float32) and forms dW_hh and db_hh
-    with one ``torch.matmul``. CPU tensors go to
-    ``gru_layer_backward_reference``. ``gru_layer_backward.launches`` counts
-    K2 launches.
+    with one ``torch.matmul``. K2 keeps ~0.5 KB of shared memory per batch
+    row beside its ~150 KB of dpre tiles (csrc/gru_bwd.cu), which caps one
+    launch at about 150 rows; the rows are independent in the backward
+    recurrence, so a larger batch runs as one launch per block of
+    ``K2_MAX_ROWS`` rows, each row getting the values one launch would give
+    it. CPU tensors go to ``gru_layer_backward_reference``.
+    ``gru_layer_backward.launches`` counts K2 launches.
     """
     if x_proj.device.type == "cpu":
         return gru_layer_backward_reference(x_proj, w_hh, b_hh, h0, out, g_out, g_hf)
@@ -224,19 +228,23 @@ def gru_layer_backward(
     hh = torch.empty((B, T, 3 * H), dtype=torch.float32, device=x_proj.device)
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.b2t_gru_bwd(
-            x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
-            out.data_ptr(), g_out.data_ptr(), g_hf.data_ptr(),
-            dxp.data_ptr(), dpre.data_ptr(), dh0.data_ptr(), hh.data_ptr(),
-            B, T, H, _DTYPE_CODES[dtype], stream,
-        )
-    _raise_on(err, lib, f"gru_bwd (B={B}, T={T}, H={H}, {dtype})")
-    gru_layer_backward.launches += 1
+        for lo in range(0, B, K2_MAX_ROWS):
+            rows = slice(lo, min(B, lo + K2_MAX_ROWS))
+            n = rows.stop - lo
+            err = lib.b2t_gru_bwd(
+                x_proj[rows].data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                h0[rows].data_ptr(), out[rows].data_ptr(), g_out[rows].data_ptr(),
+                g_hf[rows].data_ptr(), dxp[rows].data_ptr(), dpre[rows].data_ptr(),
+                dh0[rows].data_ptr(), hh[rows].data_ptr(), n, T, H, _DTYPE_CODES[dtype], stream,
+            )
+            _raise_on(err, lib, f"gru_bwd (B={n} of {B}, T={T}, H={H}, {dtype})")
+            gru_layer_backward.launches += 1
     dw, db = _weight_grads(dpre, _h_prev(h0, out))
     return dxp, dw.to(w_hh.dtype), db.to(b_hh.dtype), dh0.to(h0.dtype)
 
 
 gru_layer_backward.launches = 0
+K2_MAX_ROWS = 128   # batch rows of one K2 launch
 
 
 class GRULayerFn(torch.autograd.Function):

@@ -39,6 +39,10 @@ def gaussian_kernel(std: float = 2.0, size: int = 100, trunc_thresh: float = 0.0
     return tuple(float(v) for v in kernel.astype(np.float32))
 
 
+def kernel_array(std: float = 2.0, size: int = 100) -> np.ndarray:
+    return np.asarray(gaussian_kernel(std, size), dtype=np.float32)
+
+
 def gauss_smooth(
     inputs: torch.Tensor,
     std: float = 2.0,

@@ -116,7 +116,6 @@ def build_sharded_train_step(
     data_group, model_group = mesh.get_group("data"), mesh.get_group("model")
     seed = cfg.seed if cfg.seed != -1 else 0
     is_sharded = torch.tensor([specs[n] is not None for n in params], device=device)
-    mcfg = cfg.model
 
     def place_params(state_dict: Mapping[str, torch.Tensor]) -> ShardedTrainState:
         local = {n: t.detach().to(device, torch.float32).clone().requires_grad_(True)
@@ -139,7 +138,7 @@ def build_sharded_train_step(
             draws.cut = torch.randint(0, targs.random_cut, (), generator=state.shared,
                                       device=device)
         feats, n_time = transform_data(feats, batch["n_time_steps"], targs, True, draws=draws)
-        adjusted = (n_time - mcfg.patch_size) // mcfg.patch_stride + 1
+        adjusted = skeleton.adjusted_lengths(n_time)
         full = gather_flat_shards(state.params, specs, model_group, grad=True)
         logits = functional_call(skeleton, full, (feats, batch["day_indicies"]), dict(
             compute_dtype=compute_dtype, training=True, generator=state.own))

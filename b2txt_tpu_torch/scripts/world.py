@@ -39,7 +39,7 @@ def make_stage1(B: int, T: int, head_gain: Optional[float] = None,
     from ..models.planted import features_on_device, planted_params
     from ..ops.smoothing import gauss_smooth, gaussian_kernel
     from ..utils.config import TrainConfig
-    from ..utils.device import resolve_device
+    from ..utils.device import resolve_device, upload
 
     device = resolve_device(device)
     cfg = TrainConfig()
@@ -65,7 +65,9 @@ def make_stage1(B: int, T: int, head_gain: Optional[float] = None,
         return torch.log_softmax(logits.float(), dim=-1)
 
     def run(labels, generator: torch.Generator) -> torch.Tensor:
-        labels = torch.as_tensor(np.asarray(labels, np.int64)).to(device)
+        # a pinned, non-blocking upload: a pageable copy would wait for the
+        # card, and run() only enqueues work
+        labels = upload(np.asarray(labels, np.int64), device)
         return posteriors(features_on_device(code, labels, generator, noise=0.3))
 
     run.posteriors = posteriors

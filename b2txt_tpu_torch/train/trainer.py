@@ -184,7 +184,7 @@ class Trainer:
         else:
             feats, n_time = transform_data(feats, n_time, self.transform_args, training,
                                            generator=self.generator)
-        adjusted = (n_time - cfg.model.patch_size) // cfg.model.patch_stride + 1
+        adjusted = self.model.adjusted_lengths(n_time)
         logits = self.model(feats, batch["day_indicies"], compute_dtype=self.compute_dtype,
                             training=training, generator=self.generator)
         return logits, adjusted

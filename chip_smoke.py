@@ -59,6 +59,15 @@ then:
   the figures demo's data half at full width on sessions in memory, the
   conversation demo's picks and its context scoring on the OPT-6.7b
   weights, and the host-only lattice and spelling demos;
+- runs the measurement drivers of ``b2txt_tpu_torch.scripts`` through their
+  ``main(argv)`` (``drivers``, after the examples, on the OPT weights still
+  on the card): ``bench`` at full size without its LLM stage (both
+  pipelines 512/512, WER 0, K1 5 a batch), ``bench_device_decode``,
+  ``bench_streaming`` (the hop under 80 ms), ``bench_training`` (and its
+  ``--full_input`` refusing without h5py), ``profile_train_step`` (K1 and K2
+  at B = 64, 128, 256), ``profile_device_step``'s four modes, ``bench_opt``'s
+  stages A, B and D (B's scores those of ``OPTRescorer.score``) and
+  ``drive_large_lm`` at 1M entries (native and device top-1 equal);
 - trains the full-width model (``TrainConfig()`` defaults: bf16, dropout,
   augmentation, batch 64 over 4 days) for 20 steps with the augmentations in
   PyTorch and 5 with the fused kernel, on synthetic trials in memory, and
@@ -162,7 +171,7 @@ GATHER_IN_FLIGHT = [1, 8, 32, 128]
 OPT_SEED = 11
 # (1, 64): one packed row, the shape of a per-utterance finalize call
 OPT_SHAPES = [(32, 32), (8, 128), (1, 64)]
-OPT_LISTS, OPT_NBEST, OPT_POOL, OPT_CONTEXT_WORDS = 8, 100, 3000, 48
+OPT_LISTS, OPT_NBEST, OPT_CONTEXT_WORDS = 8, 100, 48
 OPT_MAX_LEN = 32           # bench_opt.py stage B's rescorer
 OPT_PARITY_LAYERS, OPT_PARITY_TEXTS = 2, 32
 # full width, 2 layers, f32 with TF32 off: the card against the same code on
@@ -232,6 +241,23 @@ PARALLEL_FORWARD_B = 128
 PARALLEL_TRAIN_STEPS, PARALLEL_TRAIN_TOL = 5, 1e-6
 COLLECTIVE_PROBE_CALLS = 200
 BUSY_CYCLES = 100_000_000   # torch.cuda._sleep: ~50 ms of a busy card
+# the drivers phase: each driver's arguments (full size unless cut here;
+# PERF.md §4 lists the cuts)
+DRIVER_ARGV = {
+    "bench": ["--skip_llm"],
+    "bench_device_decode": ["--utts", "64"],
+    "bench_streaming": ["--hops", "128", "--device_hops", "64"],
+    "bench_training": [],
+    "bench_training_full_input": ["--full_input"],
+    "profile_train_step": ["--iters", "10"],
+    "profile_device_step_gather": ["gather"],
+    "profile_device_step_sort": ["sort"],
+    "profile_device_step_sel": ["sel"],
+    "profile_device_step_step": ["step", "--stub_lm"],
+    "bench_opt": ["--context_words", "48"],
+    "drive_large_lm": ["--entries", "1000000", "--vocab", "50000", "--order", "5",
+                       "--device"],
+}
 
 
 def emit(obj) -> None:
@@ -1693,21 +1719,14 @@ def check_connected(fig, n_layers) -> list:
 
 
 def opt_texts(seed: int = 0):
-    """bench_opt.py stage B's n-best lists: per list, 6 words from a 3,000-word
-    pool, then 100 candidates each with one word swapped; and a 48-word
-    context (its stage D)."""
+    """bench_opt's stage B n-best lists (``nbest_lists``: per list, 6 words
+    from a 3,000-word pool, then 100 candidates each with one word swapped)
+    and a 48-word context drawn next, as its stage D draws it."""
+    from b2txt_tpu_torch.scripts.bench_opt import nbest_lists
+
     rng = np.random.default_rng(seed)
-    pool = [f"word{i}" for i in range(OPT_POOL)]
-    lists = []
-    for _ in range(OPT_LISTS):
-        base = [pool[i] for i in rng.integers(0, OPT_POOL, 6)]
-        cands = []
-        for _ in range(OPT_NBEST):
-            c = list(base)
-            c[rng.integers(0, len(c))] = pool[rng.integers(0, OPT_POOL)]
-            cands.append(" ".join(c))
-        lists.append(cands)
-    context = " ".join(pool[i] for i in rng.integers(0, OPT_POOL, OPT_CONTEXT_WORDS))
+    lists, pool = nbest_lists(OPT_NBEST, rng)
+    context = " ".join(pool[i] for i in rng.integers(0, len(pool), OPT_CONTEXT_WORDS))
     return lists, context
 
 
@@ -2458,10 +2477,34 @@ def phase_sharded_decode(world, mesh):
     return fig
 
 
+def bias_order_probe(params, n_ctx: int):
+    """Why a mesh of one once differed from the unsharded rescorer: fc2 of
+    layer 0 in bf16 at the context forward's rows (1, n_ctx, 16384) and at
+    a packed batch's (13, 64, 16384), with its bias in the product (the
+    unsharded ``_linear``) against the bias added after a bias-free product
+    (``_row_parallel`` before the repair). The bias is 0, so any difference
+    is the two cuBLAS kernels' rounding."""
+    import torch
+    import torch.nn.functional as F
+
+    w = params["model.decoder.layers.0.fc2.weight"]
+    b = params["model.decoder.layers.0.fc2.bias"]
+    gen = torch.Generator(device="cuda").manual_seed(OPT_SEED + 2)
+    out = {}
+    for rows in ((1, n_ctx), (13, 64)):
+        h = torch.randn(rows + (w.shape[1],), generator=gen, device="cuda").to(w.dtype)
+        with torch.inference_mode():
+            out[f"{rows[0]}x{rows[1]}"] = float((F.linear(h, w, b) - (F.linear(h, w) + b))
+                                                .abs().max())
+    return out
+
+
 def phase_opt_tp(params, mesh):
     """OPTRescorer(mesh=(1, 1)) on the OPT phases' 6.7b weights against the
     unsharded rescorer: 8 lists of 100 candidates packed, and with the
-    48-word context (prefix-KV)."""
+    48-word context (prefix-KV). A group of one must give the unsharded
+    scores bit for bit; the unsharded prefix-KV scores must repeat bit for
+    bit; ``bias_order_probe`` shows the rounding the repair removed."""
     import torch
 
     from b2txt_tpu_torch.decode.opt_lm import OPTConfig, OPTRescorer, word_hash_encode
@@ -2480,17 +2523,24 @@ def phase_opt_tp(params, mesh):
         resc = OPTRescorer(cfg, max_len=OPT_MAX_LEN, **kw)
         figs[name] = {"packed": packed, "context": ctx, "s_per_list_packed": packed_s,
                       "s_per_list_prefix_kv": prefix_s, "prefix_runs": prefix.prefix_runs,
+                      "context_again": [prefix.score(c, context=context) for c in lists],
                       "profile": profile_call(lambda: resc.score(lists[0]))}
     a, b = figs["mesh"], figs["unsharded"]
     fig = {"phase": "opt_tp", "config": "OPTConfig.opt_6_7b(), bf16, mesh (1, 1)",
            "lists": OPT_LISTS, "nbest": OPT_NBEST, "context_words": OPT_CONTEXT_WORDS,
            "packed_max_abs": max_abs(a["packed"], b["packed"]), "tol": OPT_BF16_TOL,
            "context_max_abs": max_abs(a["context"], b["context"]), "prefix_tol": OPT_PREFIX_TOL,
+           "context_repeat_max_abs": {name: max_abs(figs[name]["context"],
+                                                    figs[name]["context_again"])
+                                      for name in figs},
+           "bias_in_product_vs_after_max_abs": bias_order_probe(
+               params, len(enc(context, 512))),
            **{f"{k}_{name}": figs[name][k] for name in figs
               for k in ("s_per_list_packed", "s_per_list_prefix_kv")},
            "profile_one_list": {name: figs[name]["profile"] for name in figs},
            "all_finite": bool(np.isfinite(a["packed"]).all() and np.isfinite(a["context"]).all())}
     fig["ok"] = bool(fig["all_finite"] and a["prefix_runs"] > 0
+                     and fig["packed_max_abs"] == 0.0 and fig["context_max_abs"] == 0.0
                      and np.allclose(a["packed"], b["packed"], **OPT_BF16_TOL)
                      and np.allclose(a["context"], b["context"], **OPT_PREFIX_TOL))
     emit(fig)
@@ -2743,6 +2793,156 @@ def phase_parallel_two_ranks():
     return fig
 
 
+def run_driver(main, argv, counters, **kw):
+    """A driver's ``main(argv)`` in this process with the kernels' counts
+    from 0: (its return, every JSON line it printed, its wall seconds, the
+    launches it made, the error it raised or None). Its printed lines are
+    parsed here, not echoed."""
+    import contextlib
+    import io
+    import traceback
+
+    zero(counters)
+    buf = io.StringIO()
+    ret, error = None, None
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ret = main(argv, **kw)
+    except BaseException as e:  # noqa: BLE001 (SystemExit too: it is a result here)
+        error = f"{type(e).__name__}: {e}"[:300] + " | " + traceback.format_exc()[-600:]
+    s = time.perf_counter() - t0
+    lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    return ret, lines, s, counted_launches(counters), error
+
+
+def all_finite(obj) -> bool:
+    """Every number inside ``obj`` (nested dicts and lists) is finite."""
+    if isinstance(obj, dict):
+        return all(all_finite(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return all(all_finite(v) for v in obj)
+    if isinstance(obj, float):
+        return bool(np.isfinite(obj))
+    return True
+
+
+def phase_drivers(opt_params, counters):
+    """The measurement drivers of ``b2txt_tpu_torch.scripts`` on the card,
+    each through its ``main(argv)`` as a user runs it, with their printed
+    JSON lines parsed and gated (DRIVER_ARGV gives each one's arguments):
+    bench.py at full size without its LLM stage (``finalize_opt`` holds the
+    6.7b finalize), bench_opt's stages A, B and D on the OPT weights already
+    on the card, and the others at their own sizes or the cuts listed."""
+    import torch
+
+    from b2txt_tpu_torch.decode.opt_lm import OPTConfig, OPTRescorer, word_hash_encode
+    from b2txt_tpu_torch.scripts import (bench, bench_device_decode, bench_opt, bench_streaming,
+                                         bench_training, drive_large_lm, profile_device_step,
+                                         profile_train_step)
+
+    mains = {"bench": bench.main, "bench_device_decode": bench_device_decode.main,
+             "bench_streaming": bench_streaming.main, "bench_training": bench_training.main,
+             "bench_training_full_input": bench_training.main,
+             "profile_train_step": profile_train_step.main,
+             "bench_opt": lambda argv: bench_opt.main(argv, params=opt_params),
+             "drive_large_lm": drive_large_lm.main}
+    mains.update({f"profile_device_step_{m}": profile_device_step.main
+                  for m in ("gather", "sort", "sel", "step")})
+    runs, problems = {}, []
+    for name, argv in DRIVER_ARGV.items():
+        ret, lines, secs, launches, error = run_driver(mains[name], argv, counters)
+        runs[name] = {"argv": argv, "s": secs, "launches": launches, "lines": lines,
+                      "error": error, "ret": ret}
+        if error and name != "bench_training_full_input":
+            problems.append(f"{name}: {error}")
+        torch.cuda.empty_cache()
+    if problems:
+        fig = {"phase": "drivers", "ok": False, "problems": problems,
+               "s": {n: r["s"] for n, r in runs.items()},
+               "lines": {n: r["lines"] for n, r in runs.items() if n != "bench_opt"}}
+        emit(fig)
+        return fig
+
+    def last(name):
+        return runs[name]["lines"][-1]
+
+    # bench.py: both backends exact, WER 0, K1 5 a batch
+    e = last("bench")["extra"]
+    n = e["utts"]
+    for key in ("device_exact", "device_pipeline_exact", "native_exact"):
+        if e[key] != f"{n}/{n}":
+            problems.append(f"bench: {key} {e[key]}")
+    if e["device_wer"] != 0.0 or e["native_wer"] != 0.0:
+        problems.append(f"bench: WER {e['device_wer']} / {e['native_wer']}")
+    if e["gru_fwd_launches_per_batch"] != 5 or runs["bench"]["launches"]["gru_fwd"] == 0:
+        problems.append(f"bench: K1 {e['gru_fwd_launches_per_batch']} a batch, "
+                        f"{runs['bench']['launches']['gru_fwd']} in all")
+    # bench_device_decode: the device search as exact as the native one
+    d = last("bench_device_decode")
+    if d["device_exact"] != d["native_exact"]:
+        problems.append(f"bench_device_decode: {d['device_exact']} against {d['native_exact']}")
+    # bench_streaming: the hop inside its 80 ms, K1 launched
+    st = last("bench_streaming")
+    if not (st["update_latency_ms"]["median"] < 80.0 and st["gru_fwd_launches"] > 0
+            and all_finite(st)):
+        problems.append(f"bench_streaming: {st['update_latency_ms']}, "
+                        f"K1 {st['gru_fwd_launches']}")
+    # the training drivers: finite, K1 and K2 launched (at B = 256 too)
+    tr = last("bench_training")
+    if not (all_finite(tr) and min(tr["launches"].values()) > 0):
+        problems.append(f"bench_training: {tr}")
+    fi = runs["bench_training_full_input"]
+    if not (fi["error"] and "h5py" in fi["error"]):
+        problems.append(f"bench_training --full_input: expected the h5py refusal, got "
+                        f"{fi['error'] or fi['lines']}")
+    steps = {line["stage"]: line for line in runs["profile_train_step"]["lines"]
+             if "stage" in line}
+    for B in (64, 128, 256):
+        f = steps.get(f"full_step_B{B}")
+        if f is None or not all_finite(f) or min(f["launches"].values()) == 0:
+            problems.append(f"profile_train_step B={B}: {f}")
+    if not all(all_finite(line) for line in runs["profile_train_step"]["lines"]):
+        problems.append("profile_train_step: a time or loss is not finite")
+    # profile_device_step: every mode prints its lines
+    for mode, key in (("gather", "layout"), ("sort", "us_per_sort"), ("sel", "op"),
+                      ("step", "ms_per_frame")):
+        if not any(key in line for line in runs[f"profile_device_step_{mode}"]["lines"]):
+            problems.append(f"profile_device_step {mode}: no {key} line")
+    # bench_opt: stages A and B finite, B's scores those of OPTRescorer.score
+    A, Bst = runs["bench_opt"]["ret"][0], runs["bench_opt"]["ret"][1]
+    cfg = OPTConfig.opt_6_7b()
+    lists, _ = bench_opt.nbest_lists(Bst["nbest"], np.random.default_rng(0))
+    resc = OPTRescorer(cfg, params=opt_params, encode=word_hash_encode(cfg.vocab_size),
+                       device="cuda", compute_dtype=torch.bfloat16, max_len=32)
+    want = [resc.score(c) for c in lists]
+    stage_b_equal = max_abs(Bst["scores"], want) == 0.0
+    if not (all_finite(A) and Bst["scores_finite"] and stage_b_equal):
+        problems.append(f"bench_opt: A finite {all_finite(A)}, B finite "
+                        f"{Bst['scores_finite']}, B equal to OPTRescorer.score {stage_b_equal}")
+    # drive_large_lm: the device search's top-1 equal to the native one's
+    dl = runs["drive_large_lm"]["lines"]
+    dev_line = [line for line in dl if line.get("backend") == "device"]
+    if not dev_line or dev_line[0]["native_top1_equal"].split("/")[0] != \
+            dev_line[0]["native_top1_equal"].split("/")[1]:
+        problems.append(f"drive_large_lm: {dl}")
+
+    fig = {"phase": "drivers", "s": {n: r["s"] for n, r in runs.items()},
+           "total_s": sum(r["s"] for r in runs.values()), "clock": "host",
+           "launches": {n: r["launches"] for n, r in runs.items()},
+           "launches_total": {k: sum(r["launches"][k] for r in runs.values())
+                              for k in counters},
+           "argv": {n: r["argv"] for n, r in runs.items()},
+           "lines": {n: [{k: v for k, v in line.items() if k != "scores"}
+                         for line in r["lines"]] for n, r in runs.items()},
+           "full_input_error": fi["error"][:200] if fi["error"] else None,
+           "bench_opt_stage_b_equal_to_score": stage_b_equal,
+           "problems": problems}
+    fig["ok"] = not problems
+    emit(fig)
+    return fig
+
+
 def kernel_entry(name, route, source, replaces, launches, launches_per, k, shape_keys):
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "launches_per": launches_per,
@@ -2867,6 +3067,10 @@ def main() -> int:
                                                "gru_bwd": gru_layer_backward})
     if not examples_fig["ok"]:
         problems.append(f"examples: {examples_fig['problems']}")
+    drivers_fig = phase_drivers(opt_params, {"gru_fwd": gru_layer_forward,
+                                             "gru_bwd": gru_layer_backward})
+    if not drivers_fig["ok"]:
+        problems.append(f"drivers: {drivers_fig['problems']}")
     del opt_params
     torch.cuda.empty_cache()
     train_fig = phase_train({"gru_fwd": gru_layer_forward, "gru_bwd": gru_layer_backward,
@@ -2902,7 +3106,8 @@ def main() -> int:
                      + examples_fig["launches_total"]["gru_fwd"]
                      + sum(n["gru_fwd"] for n in ladder_fig["launches_per_gain"])
                      + pfwd_fig["launches"]["gru_fwd"]
-                     + ptrain_fig["launches_sharded"]["gru_fwd"],
+                     + ptrain_fig["launches_sharded"]["gru_fwd"]
+                     + drivers_fig["launches_total"]["gru_fwd"],
                      f"serve run: {fig['batches']} forward batch of {N_REQUESTS} requests "
                      f"({fig['launches']['gru_fwd']}); cli runs: "
                      + ", ".join(f"{k} {v['gru_fwd']}" for k, v in cli_fig["launches"].items())
@@ -2913,19 +3118,26 @@ def main() -> int:
                      f"({len(LADDER_GAINS)} gains x {LADDER_UTTS // LADDER_BATCH} batches); "
                      f"parallel_forward {pfwd_fig['launches']['gru_fwd']}, parallel_train "
                      f"{ptrain_fig['launches_sharded']['gru_fwd']} ({PARALLEL_TRAIN_STEPS} "
-                     f"sharded steps)",
+                     f"sharded steps); drivers "
+                     + ", ".join(f"{k} {v['gru_fwd']}"
+                                 for k, v in drivers_fig["launches"].items()
+                                 if v["gru_fwd"]),
                      k_fwd, ("B", "T", "H", "dtype", "weights")),
         kernel_entry("gru_bwd", "cuda", "b2txt_tpu_torch/csrc/gru_bwd.cu",
                      "b2txt_tpu/ops/pallas/gru.py:122",
                      runs["transform_data"]["launches"]["gru_bwd"]
                      + examples_fig["launches_total"]["gru_bwd"]
-                     + ptrain_fig["launches_sharded"]["gru_bwd"],
+                     + ptrain_fig["launches_sharded"]["gru_bwd"]
+                     + drivers_fig["launches_total"]["gru_bwd"],
                      f"train run: {TRAIN_STEPS} steps "
                      f"({runs['transform_data']['launches']['gru_bwd']}); examples: "
                      f"quickstart {QUICKSTART_STEPS} steps, figures {FIGURES_STEPS} steps "
                      f"({examples_fig['launches_total']['gru_bwd']}); parallel_train "
                      f"{PARALLEL_TRAIN_STEPS} sharded steps "
-                     f"({ptrain_fig['launches_sharded']['gru_bwd']})", k_bwd,
+                     f"({ptrain_fig['launches_sharded']['gru_bwd']}); drivers "
+                     + ", ".join(f"{k} {v['gru_bwd']}"
+                                 for k, v in drivers_fig["launches"].items()
+                                 if v["gru_bwd"]), k_bwd,
                      ("B", "T", "H", "dtype", "weights")),
         kernel_entry("fused_preprocess", "cuda", "b2txt_tpu_torch/csrc/preprocess.cu",
                      "b2txt_tpu/ops/pallas/preprocess.py:51",

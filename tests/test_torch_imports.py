@@ -78,7 +78,13 @@ def test_every_module_imports_without_jax():
                 "b2txt_tpu_torch.examples.quickstart", "b2txt_tpu_torch.examples.streaming_demo",
                 "b2txt_tpu_torch.examples.conversation_demo",
                 "b2txt_tpu_torch.examples.lattice_demo", "b2txt_tpu_torch.examples.spelling_demo",
-                "b2txt_tpu_torch.examples.figures_demo"}
+                "b2txt_tpu_torch.examples.figures_demo", "b2txt_tpu_torch.scripts.bench",
+                "b2txt_tpu_torch.scripts.bench_device_decode",
+                "b2txt_tpu_torch.scripts.bench_opt", "b2txt_tpu_torch.scripts.bench_streaming",
+                "b2txt_tpu_torch.scripts.bench_training",
+                "b2txt_tpu_torch.scripts.profile_train_step",
+                "b2txt_tpu_torch.scripts.profile_device_step",
+                "b2txt_tpu_torch.scripts.drive_large_lm"}
     assert expected <= set(report["names"])
 
 

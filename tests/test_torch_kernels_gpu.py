@@ -50,6 +50,8 @@ def _recurrent_inputs(B, H, weights, rng):
     (17, 125, 768, "contractive"), (128, 125, 768, "decoder_init"),
     # the streaming hop: one patch window, one step per layer, carried state
     (1, 1, 768, "decoder_init"), (1, 4, 768, "decoder_init"),
+    # the training drivers' largest batch
+    (256, 125, 768, "decoder_init"),
 ])
 def test_gru_kernel_matches_plain(B, T, H, weights, dtype, tol):
     _need_card()
@@ -77,11 +79,14 @@ def _rel_err(a, b):
     (64, 125, 768, "contractive"), (64, 125, 768, "decoder_init"),
     (17, 9, 40, "contractive"), (1, 9, 40, "contractive"), (3, 6, 13, "contractive"),
     (17, 125, 768, "contractive"),
+    # past one launch's rows (K2_MAX_ROWS): blocks of rows, the last ragged
+    (256, 125, 768, "decoder_init"), (200, 9, 40, "contractive"),
 ])
 def test_gru_backward_kernel_matches_plain(B, T, H, weights, dtype, tol):
     """K2 against gru_layer_backward_reference on the same forward outputs
     and cotangents: max |x - x_plain| / max(1, max |x_plain|) for dxp,
-    dW_hh, db_hh and dh0 (the tolerances of chip_smoke.py's GRU_BWD_TOL)."""
+    dW_hh, db_hh and dh0 (the tolerances of chip_smoke.py's GRU_BWD_TOL).
+    A batch past ``K2_MAX_ROWS`` takes one launch per block of rows."""
     _need_card()
     rng = np.random.default_rng(B * 1000 + H + 1)
     arrays = [rng.standard_normal((B, T, 3 * H)), *_recurrent_inputs(B, H, weights, rng)]
@@ -93,7 +98,7 @@ def test_gru_backward_kernel_matches_plain(B, T, H, weights, dtype, tol):
     before = port_gru.gru_layer_backward.launches
     got = port_gru.gru_layer_backward(*args, out, g_out, g_hf)
     torch.cuda.synchronize()
-    assert port_gru.gru_layer_backward.launches == before + 1
+    assert port_gru.gru_layer_backward.launches == before + -(-B // port_gru.K2_MAX_ROWS)
     want = port_gru.gru_layer_backward_reference(*args, out, g_out, g_hf)
     for name, a, b in zip(["dxp", "dw_hh", "db_hh", "dh0"], got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name

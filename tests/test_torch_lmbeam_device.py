@@ -164,3 +164,27 @@ def test_searcher_wants_the_card(world, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lb.DeviceLexiconBeamSearch(lexicon, lm, DecodeConfig())
+
+
+def test_lazy_constructor_builds_the_searcher(world, jax_searchers):
+    """``decode.device_lexicon_beam_search`` builds the class itself, as the
+    JAX package's lazy constructor does: the same n-best as a searcher built
+    directly, and as JAX's."""
+    from b2txt_tpu.decode import device_lexicon_beam_search as jax_lazy
+    from b2txt_tpu_torch.decode import device_lexicon_beam_search
+
+    lexicon, lm, jlex, jlm, lps = world
+    knobs = CONFIGS[1]
+    made = device_lexicon_beam_search(lexicon, lm, DecodeConfig(nbest=10, beam_width=64, **knobs),
+                                      device="cpu")
+    direct = lb.DeviceLexiconBeamSearch(lexicon, lm, DecodeConfig(nbest=10, beam_width=64,
+                                                                  **knobs), device="cpu")
+    jax_made = jax_lazy(jlex, jlm, JaxDecodeConfig(nbest=10, beam_width=64, **knobs))
+    assert type(made) is lb.DeviceLexiconBeamSearch
+    assert type(jax_made) is jlb.DeviceLexiconBeamSearch
+    batch, lens = batch_of(lps)
+    for got, same, want in zip(made.decode_batch(batch, lens), direct.decode_batch(batch, lens),
+                               jax_searchers(knobs).decode_batch(batch, lens)):
+        assert [(r.sentence, r.ac_score, r.lm_score) for r in got] == \
+            [(r.sentence, r.ac_score, r.lm_score) for r in same]
+        assert_same_nbest(got, want)

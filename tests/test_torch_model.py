@@ -140,3 +140,42 @@ def test_smoothing_matches_jax(rng, padding):
     ref = np.asarray(jax_smooth(jnp.asarray(x), padding=padding))
     assert ours.shape == ref.shape
     np.testing.assert_array_equal(ours, ref)
+
+
+def test_adjusted_lengths_match_jax(rng):
+    """``GRUDecoder.adjusted_lengths`` on random lengths, for a tensor and
+    for an int (the evaluation harness passes ints)."""
+    for patch_size, patch_stride in ((14, 4), (5, 2)):
+        cfg = _cfg(patch_size, patch_stride)
+        ours = GRUDecoder(cfg, N_DAYS, N_CLASSES, device="cpu")
+        jcfg = JaxModelConfig()
+        jcfg.n_input_features, jcfg.n_units, jcfg.n_layers = D, H, N_LAYERS
+        jcfg.patch_size, jcfg.patch_stride = patch_size, patch_stride
+        ref = jax_model.GRUDecoder(jcfg, n_days=N_DAYS, n_classes=N_CLASSES)
+        lengths = rng.integers(patch_size, 600, 50)
+        got = ours.adjusted_lengths(torch.from_numpy(lengths))
+        want = np.asarray(ref.adjusted_lengths(jnp.asarray(lengths, jnp.int32)))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert [ours.adjusted_lengths(int(n)) for n in lengths] == want.tolist()
+
+
+def test_kernel_array_matches_jax():
+    from b2txt_tpu.ops import kernel_array as jax_kernel_array
+    from b2txt_tpu_torch.ops import kernel_array
+
+    for std, size in ((2.0, 100), (1.5, 20), (3.0, 64)):
+        got, want = kernel_array(std, size), jax_kernel_array(std, size)
+        assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("patch_size,patch_stride", [(14, 4), (0, 0)])
+def test_param_count_matches_jax(patch_size, patch_stride):
+    from b2txt_tpu.models import param_count as jax_param_count
+    from b2txt_tpu_torch.models import param_count
+
+    params = _jax_params(patch_size)
+    model = _port_model(params, patch_size, patch_stride)
+    assert param_count(model) == jax_param_count(params)
+    assert param_count(model.state_dict()) == jax_param_count(params)

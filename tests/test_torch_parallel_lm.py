@@ -117,6 +117,38 @@ def test_opt_mesh_equals_jax_mesh(ranks, jax_side, path):
     np.testing.assert_allclose(ranks[0][(2, 2)][path], jax_side["opt"][path], **F32)
 
 
+def _one_rank_case(sd):
+    """The mesh (1, 1) and the unsharded rescorer in bf16, in one rank."""
+    mesh = make_mesh(1, model_parallel=1)
+    out = {}
+    for name, m in (("mesh", mesh), ("unsharded", None)):
+        out[name] = {**_opt_scores(_opt(sd, mesh=m, compute_dtype=torch.bfloat16), _texts()),
+                     "unpacked": _opt(sd, mesh=m, pack=False,
+                                      compute_dtype=torch.bfloat16).score(_texts())}
+    return out
+
+
+@pytest.fixture(scope="module")
+def one_rank():
+    """Tiny OPT in bf16 with non-zero biases (``init_params`` draws them 0)."""
+    gen = torch.Generator().manual_seed(5)
+    sd = opt_lm.init_params(opt_lm.OPTConfig.tiny(), "cpu", torch.float32, gen)
+    for name in sd:
+        if name.endswith(".bias"):
+            sd[name] = torch.randn(sd[name].shape, generator=gen) * 0.5
+    sd = {k: v.to(torch.bfloat16) for k, v in sd.items()}
+    return spawn(_one_rank_case, 1, args=(sd,), timeout_s=SPAWN_DEADLINE_S)[0]
+
+
+@pytest.mark.parametrize("path", ["packed", "context", "unpacked"])
+def test_opt_mesh_of_one_equals_unsharded_bit_for_bit(one_rank, path):
+    """A group of one runs the unsharded forward: out_proj's and fc2's
+    biases go into the first rank's product, not after the all_reduce (a
+    bf16 add after the product rounds twice: up to 8.9e-3 apart on these
+    scores before that repair)."""
+    np.testing.assert_array_equal(one_rank["mesh"][path], one_rank["unsharded"][path])
+
+
 @pytest.mark.parametrize("shape", MESHES)
 def test_opt_heads_split(ranks, shape):
     D = opt_lm.OPTConfig.tiny().hidden_size

@@ -63,6 +63,7 @@ from ..utils.config import DecodeConfig
 from ..utils.device import resolve_device
 from ..utils.device import upload as _upload
 from ..utils.phonemes import BLANK_ID, SIL_ID_MODEL
+from ..utils.profiling import count, span
 from .lmbeam import DecodeResult
 
 NEG = -1.0e30
@@ -675,6 +676,7 @@ class DeviceLexiconBeamSearch:
         parents, words = [], []
         if n_frames is None:
             n_frames = min(T, int(np.max(lengths, initial=0)))
+        count("search.frames", n_frames)
         for t in range(n_frames):
             new, par, _, wd = self._expand(state, lp[:, t], **args)
             if t < n_all:
@@ -744,7 +746,7 @@ class DeviceLexiconBeamSearch:
         """Issue a batch's frames and finalize on the device, and the copies
         of their outputs to pinned host memory, without waiting for any of
         it. Pair with _collect_batch."""
-        with torch.inference_mode():
+        with span("search.issue"), torch.inference_mode():
             lp, lengths, log_bp = self._prep_batch(log_probs, input_lengths)
             if log_bp != 0.0:
                 lp[:, :, self.blank] -= log_bp
@@ -760,10 +762,12 @@ class DeviceLexiconBeamSearch:
 
     def _collect_batch(self, handle: _BatchHandle, nbest=None) -> List[List[DecodeResult]]:
         if handle.event is not None:
-            handle.event.synchronize()
-        final = tuple(t.numpy() for t in handle.final)
-        recs = tuple(t.numpy() for t in handle.recs)
-        return self._extract_results(final, recs, nbest)
+            with span("search.wait"):
+                handle.event.synchronize()
+        with span("search.extract"):
+            final = tuple(t.numpy() for t in handle.final)
+            recs = tuple(t.numpy() for t in handle.recs)
+            return self._extract_results(final, recs, nbest)
 
     def decode_batches(self, batches: Iterable, nbest=None):
         """Software-pipelined decode over [(log_probs, lengths), ...]: the

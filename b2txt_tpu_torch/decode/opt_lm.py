@@ -62,6 +62,7 @@ from torch import nn
 
 from ..ops.segment import segment_sum
 from ..utils.device import resolve_device, upload
+from ..utils.profiling import current_rid, span
 
 POS_OFFSET = 2  # OPT's learned-position offset (OPTLearnedPositionalEmbedding)
 
@@ -559,12 +560,15 @@ def pack_sequences(ids: Sequence[Sequence[int]], capacity: int):
 
 def _fetcher(sums: torch.Tensor, cnt: torch.Tensor, lo: int, n: int,
              length_penalty: float) -> Callable[[], List[float]]:
-    """The thunk that waits for the device: scores lo..lo+n-1."""
+    """The thunk that waits for the device: scores lo..lo+n-1. Its span
+    carries the request id of the dispatch that made it."""
+    rid = current_rid()
 
     def fetch() -> List[float]:
-        s = sums[lo : lo + n].cpu().numpy()
-        c = cnt[lo : lo + n].cpu().numpy()
-        return (s - c * np.float32(length_penalty)).tolist()
+        with span("opt.fetch", rid=rid):
+            s = sums[lo : lo + n].cpu().numpy()
+            c = cnt[lo : lo + n].cpu().numpy()
+            return (s - c * np.float32(length_penalty)).tolist()
 
     return fetch
 
@@ -770,14 +774,15 @@ class OPTRescorer:
         reference's conversational mode, standalone :165-199) — via the
         prefix-KV path (context forward runs once) when available, else by
         concatenation (identical totals either way)."""
-        if context:
-            if self.pack and self.encode_cont is not None:
-                return self._score_prefix_begin(context, texts, length_penalty)
-            texts = [context + " " + t for t in texts]
-        ids = [self.encode(t, self.max_len) for t in texts]
-        if self.pack:
-            return self._score_packed_begin(ids, length_penalty)
-        return self._score_unpacked_begin(ids, length_penalty)
+        with span("opt.dispatch"):
+            if context:
+                if self.pack and self.encode_cont is not None:
+                    return self._score_prefix_begin(context, texts, length_penalty)
+                texts = [context + " " + t for t in texts]
+            ids = [self.encode(t, self.max_len) for t in texts]
+            if self.pack:
+                return self._score_packed_begin(ids, length_penalty)
+            return self._score_unpacked_begin(ids, length_penalty)
 
     def score(
         self,

@@ -37,6 +37,7 @@ from ..utils.config import TrainConfig
 from ..utils.g2p import sentence_to_phoneme_ids
 from ..utils.metrics import calculate_aggregate_error_rate, edit_distance
 from ..utils.phonemes import LOGIT_TO_PHONEME, greedy_collapse, remove_punctuation
+from ..utils.profiling import count, span
 
 
 @dataclass
@@ -180,123 +181,127 @@ def evaluate_session_data(
     returns) pairs, e.g. ``dict.items()`` of sessions held in memory.
     ``sessions`` is the list a session absent from the training list takes
     its day index from (by default the order of ``session_data``)."""
-    if device_resident and (
-        decoder is None or not hasattr(decoder.searcher, "decode_batches")
-    ):
-        raise ValueError(
-            "device_resident=True requires a device-backend DecoderService"
-        )
-    trials: List[TrialEval] = []
-    dev_batches: List = []
-    dev_sizes: List[int] = []
-    dev_order: List[int] = []
-
-    # Day indices must match the model's day-layer indices — i.e. the session's
-    # position in the TRAINING session list, not in a filtered subset.
-    train_sessions = list(cfg.dataset.sessions)
-
-    for n, (session, data) in enumerate(session_data):
-        if session in train_sessions:
-            day_idx = train_sessions.index(session)
-        else:
-            day_idx = list(sessions).index(session) if sessions is not None else n
-        feats = data["neural_features"]
-        if not feats:
-            continue
-        if device_resident:
-            base = len(trials)
-            batches_s, sizes_s, order_s, greedy_s = _batched_inference_device(
-                model, feats, day_idx, cfg, compute_dtype
+    with span("eval.call"):
+        if device_resident and (
+            decoder is None or not hasattr(decoder.searcher, "decode_batches")
+        ):
+            raise ValueError(
+                "device_resident=True requires a device-backend DecoderService"
             )
-            dev_batches.extend(batches_s)
-            dev_sizes.extend(sizes_s)
-            dev_order.extend(base + i for i in order_s)
-            logits_list = [None] * len(feats)
-            decoded_by_i = {
-                i: greedy_collapse(ids) for i, ids in greedy_s.items()
-            }
-        elif batched:
-            logits_list = _batched_inference(
-                model, feats, day_idx, cfg, compute_dtype
-            )
-        else:
-            logits_list = [
-                run_single_decoding_step(model, f, day_idx, cfg, compute_dtype)
-                for f in feats
-            ]
-        for i, logits in enumerate(logits_list):
-            decoded = (decoded_by_i[i] if device_resident
-                       else greedy_collapse(np.argmax(logits, axis=-1)))
-            true_ids = (
-                list(map(int, data["seq_class_ids"][i][: data["seq_len"][i]]))
-                if data["seq_class_ids"][i] is not None and data["seq_len"][i]
-                else None
-            )
-            trials.append(
-                TrialEval(
-                    session=session, day_idx=day_idx,
-                    block_num=data["block_num"][i], trial_num=data["trial_num"][i],
-                    logits=logits, decoded_ids=decoded, true_ids=true_ids,
-                    sentence_label=data["sentence_label"][i],
-                )
-            )
-            if verbose and true_ids is not None:
-                print(f"{session} b{data['block_num'][i]} t{data['trial_num'][i]}:"
-                      f" {' '.join(LOGIT_TO_PHONEME[j] for j in decoded)}")
+        trials: List[TrialEval] = []
+        dev_batches: List = []
+        dev_sizes: List[int] = []
+        dev_order: List[int] = []
 
-    out: Dict = {"trials": trials, "eval_type": eval_type}
+        # Day indices must match the model's day-layer indices — i.e. the session's
+        # position in the TRAINING session list, not in a filtered subset.
+        train_sessions = list(cfg.dataset.sessions)
 
-    # Greedy aggregate PER over trials with labels. Trials carrying only a
-    # transcript get a g2p-derived phoneme reference (the reference computes
-    # PER targets for arbitrary text via g2p_en — general_utils.py:51-74).
-    for t in trials:
-        if t.true_ids is None and t.sentence_label:
-            t.true_ids = sentence_to_phoneme_ids(t.sentence_label)
-    labeled = [t for t in trials if t.true_ids is not None]
-    if labeled:
-        total_ed = sum(edit_distance(t.true_ids, t.decoded_ids) for t in labeled)
-        total_len = sum(len(t.true_ids) for t in labeled)
-        out["greedy_PER"] = total_ed / max(total_len, 1)
-        day_per: Dict[str, Tuple[int, int]] = {}
-        for t in labeled:
-            ed = edit_distance(t.true_ids, t.decoded_ids)
-            e, l = day_per.get(t.session, (0, 0))
-            day_per[t.session] = (e + ed, l + len(t.true_ids))
-        out["day_PER"] = {
-            s: e / max(l, 1) for s, (e, l) in day_per.items()
-        }
-
-    # LM decode → sentences + aggregate WER. decode_utterances runs the whole
-    # set through the batched device search when the service uses the device
-    # backend; other backends decode serially.
-    if decoder is not None:
-        t0 = time.time()
-        if device_resident:
-            # the posteriors on the card feed the device beam search
-            # directly; outputs map back through the bucketing order
-            outs_d = decoder.decode_batched_utterances(dev_batches, dev_sizes)
-            for pos, final in zip(dev_order, outs_d):
-                trials[pos].decoded_sentence = final.sentence
-        else:
-            finals: List[FinalOutput] = decoder.decode_utterances(
-                [t.logits for t in trials]
-            )
-            for t, final in zip(trials, finals):
-                t.decoded_sentence = final.sentence
-        out["lm_decode_time"] = time.time() - t0
-        out["sentences_per_sec"] = len(trials) / max(out["lm_decode_time"], 1e-9)
-
-        refs, hyps = [], []
-        for t in trials:
-            if t.sentence_label is None:
+        for n, (session, data) in enumerate(session_data):
+            if session in train_sessions:
+                day_idx = train_sessions.index(session)
+            else:
+                day_idx = list(sessions).index(session) if sessions is not None else n
+            feats = data["neural_features"]
+            if not feats:
                 continue
-            refs.append(remove_punctuation(t.sentence_label).split())
-            hyps.append(remove_punctuation(t.decoded_sentence or "").split())
-        if refs:
-            agg, lo, hi, per_item = calculate_aggregate_error_rate(refs, hyps, seed=0)
-            out["WER"] = agg
-            out["WER_CI"] = (lo, hi)
-    return out
+            count("eval.trials", len(feats))
+            with span("eval.stage1"):
+                if device_resident:
+                    base = len(trials)
+                    batches_s, sizes_s, order_s, greedy_s = _batched_inference_device(
+                        model, feats, day_idx, cfg, compute_dtype
+                    )
+                    dev_batches.extend(batches_s)
+                    dev_sizes.extend(sizes_s)
+                    dev_order.extend(base + i for i in order_s)
+                    logits_list = [None] * len(feats)
+                    decoded_by_i = {
+                        i: greedy_collapse(ids) for i, ids in greedy_s.items()
+                    }
+                elif batched:
+                    logits_list = _batched_inference(
+                        model, feats, day_idx, cfg, compute_dtype
+                    )
+                else:
+                    logits_list = [
+                        run_single_decoding_step(model, f, day_idx, cfg, compute_dtype)
+                        for f in feats
+                    ]
+            for i, logits in enumerate(logits_list):
+                decoded = (decoded_by_i[i] if device_resident
+                           else greedy_collapse(np.argmax(logits, axis=-1)))
+                true_ids = (
+                    list(map(int, data["seq_class_ids"][i][: data["seq_len"][i]]))
+                    if data["seq_class_ids"][i] is not None and data["seq_len"][i]
+                    else None
+                )
+                trials.append(
+                    TrialEval(
+                        session=session, day_idx=day_idx,
+                        block_num=data["block_num"][i], trial_num=data["trial_num"][i],
+                        logits=logits, decoded_ids=decoded, true_ids=true_ids,
+                        sentence_label=data["sentence_label"][i],
+                    )
+                )
+                if verbose and true_ids is not None:
+                    print(f"{session} b{data['block_num'][i]} t{data['trial_num'][i]}:"
+                          f" {' '.join(LOGIT_TO_PHONEME[j] for j in decoded)}")
+
+        out: Dict = {"trials": trials, "eval_type": eval_type}
+
+        # Greedy aggregate PER over trials with labels. Trials carrying only a
+        # transcript get a g2p-derived phoneme reference (the reference computes
+        # PER targets for arbitrary text via g2p_en — general_utils.py:51-74).
+        for t in trials:
+            if t.true_ids is None and t.sentence_label:
+                t.true_ids = sentence_to_phoneme_ids(t.sentence_label)
+        labeled = [t for t in trials if t.true_ids is not None]
+        if labeled:
+            total_ed = sum(edit_distance(t.true_ids, t.decoded_ids) for t in labeled)
+            total_len = sum(len(t.true_ids) for t in labeled)
+            out["greedy_PER"] = total_ed / max(total_len, 1)
+            day_per: Dict[str, Tuple[int, int]] = {}
+            for t in labeled:
+                ed = edit_distance(t.true_ids, t.decoded_ids)
+                e, l = day_per.get(t.session, (0, 0))
+                day_per[t.session] = (e + ed, l + len(t.true_ids))
+            out["day_PER"] = {
+                s: e / max(l, 1) for s, (e, l) in day_per.items()
+            }
+
+        # LM decode → sentences + aggregate WER. decode_utterances runs the whole
+        # set through the batched device search when the service uses the device
+        # backend; other backends decode serially.
+        if decoder is not None:
+            t0 = time.time()
+            with span("eval.search"):
+                if device_resident:
+                    # the posteriors on the card feed the device beam search
+                    # directly; outputs map back through the bucketing order
+                    outs_d = decoder.decode_batched_utterances(dev_batches, dev_sizes)
+                    for pos, final in zip(dev_order, outs_d):
+                        trials[pos].decoded_sentence = final.sentence
+                else:
+                    finals: List[FinalOutput] = decoder.decode_utterances(
+                        [t.logits for t in trials]
+                    )
+                    for t, final in zip(trials, finals):
+                        t.decoded_sentence = final.sentence
+            out["lm_decode_time"] = time.time() - t0
+            out["sentences_per_sec"] = len(trials) / max(out["lm_decode_time"], 1e-9)
+
+            refs, hyps = [], []
+            for t in trials:
+                if t.sentence_label is None:
+                    continue
+                refs.append(remove_punctuation(t.sentence_label).split())
+                hyps.append(remove_punctuation(t.decoded_sentence or "").split())
+            if refs:
+                agg, lo, hi, per_item = calculate_aggregate_error_rate(refs, hyps, seed=0)
+                out["WER"] = agg
+                out["WER_CI"] = (lo, hi)
+        return out
 
 
 def evaluate_sessions(

@@ -31,6 +31,7 @@ from ..decode.lmbeam import DecodeResult
 from ..ops._build import BUILD_DIR
 from ..utils.config import DecodeConfig
 from ..utils.phonemes import LOGIT_TO_PHONEME
+from ..utils.profiling import span
 
 _DIR = Path(__file__).resolve().parent
 _SRCS = [_DIR / "decoder.cc", _DIR / "ngram_train.cc"]
@@ -222,9 +223,10 @@ class NativeLexiconBeamSearch:
     def decode(self, log_probs: np.ndarray) -> None:
         lp = np.ascontiguousarray(log_probs, np.float32)
         T, C = lp.shape
-        self._lib.b2t_decode(
-            self._h, lp.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), T, C
-        )
+        with span("native.decode"):
+            self._lib.b2t_decode(
+                self._h, lp.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), T, C
+            )
         self.n_frames += T
         self._final = None
 
@@ -232,13 +234,15 @@ class NativeLexiconBeamSearch:
         return self.n_frames > 0
 
     def finish_decoding(self) -> List[DecodeResult]:
-        n = self._lib.b2t_finalize(self._h, self._buf, len(self._buf))
-        self._final = _parse(self._buf.raw[:n])
+        with span("native.finish"):
+            n = self._lib.b2t_finalize(self._h, self._buf, len(self._buf))
+            self._final = _parse(self._buf.raw[:n])
         return self._final
 
     def result(self) -> List[DecodeResult]:
         if self._final is not None:
             return self._final
-        n = self._lib.b2t_partial(self._h, self._buf, len(self._buf))
-        res = _parse(self._buf.raw[:n])
+        with span("native.partial"):
+            n = self._lib.b2t_partial(self._h, self._buf, len(self._buf))
+            res = _parse(self._buf.raw[:n])
         return [r for r in res if r.sentence] or ([] if not res else res[:0])

@@ -114,7 +114,8 @@ class RedisDecoderServer:
             if msgs:
                 for entry_id, _ in msgs[0][1]:
                     last["reset"] = entry_id
-                self.service.reset()
+                # the request's id is the reset message's stream entry id
+                self.service.reset(request_id=last["reset"])
                 r.xadd("remote_lm_done_resetting", {"done": 1})
                 continue
 

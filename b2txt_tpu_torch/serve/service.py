@@ -23,6 +23,7 @@ python oracle.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import time
@@ -44,12 +45,16 @@ from ..decode.rescore import (
 from ..lm.lexicon import Lexicon
 from ..lm.ngram import NGramLM
 from ..utils.config import DecodeConfig
+from ..utils.profiling import span
 
 LOG = logging.getLogger("b2txt_tpu_torch.serve")
 
 # wire (LM) order [BLANK, SIL, p1..p39]  →  model order [BLANK, p1..p39, SIL]:
 # wire channel i lands at model channel _LM_TO_MODEL[i].
 _LM_TO_MODEL = np.asarray([0, 40] + list(range(1, 40)), np.int32)
+
+# request ids of the requests started without one
+_REQUEST_IDS = itertools.count(1)
 
 
 def lm_order_to_model_order(logits: np.ndarray) -> np.ndarray:
@@ -198,7 +203,7 @@ class DecoderService:
         self.llm_group_candidates = int(llm_group_candidates)
         self.channel_order = channel_order
         self.context: str = ""
-        self.stats: Dict[str, float] = {}
+        self.request_id: Any = None
 
     def _sync_device_rescore(self) -> None:
         """Keep the device searcher's on-card pool rescore in step with
@@ -223,9 +228,15 @@ class DecoderService:
             self._internal_rescore = False
 
     # ------------------------------------------------------------- protocol
-    def reset(self) -> None:
+    def reset(self, request_id: Any = None) -> None:
+        """Start a request: its id is ``request_id``, or else the next of a
+        counter, and every span until the next reset carries it."""
         self.searcher.reset()
+        self._start_request(request_id)
         LOG.info("Reset the language model.")
+
+    def _start_request(self, request_id: Any = None) -> None:
+        self.request_id = next(_REQUEST_IDS) if request_id is None else request_id
 
     def set_context(self, context: str) -> None:
         """Conversation context prepended for LLM rescoring."""
@@ -243,19 +254,19 @@ class DecoderService:
 
     def decode_chunk(self, logits: np.ndarray) -> str:
         """Consume a (T, 41) chunk of logits, return the partial sentence."""
-        logits = np.asarray(logits, np.float32).reshape(-1, 41)
-        if self.channel_order == "lm":
-            logits = lm_order_to_model_order(logits)
-        decode_numpy(self.searcher, logits)
-        res = self.searcher.result()
-        return res[0].sentence if res else ""
+        with span("serve.decode_chunk", rid=self.request_id):
+            logits = np.asarray(logits, np.float32).reshape(-1, 41)
+            if self.channel_order == "lm":
+                logits = lm_order_to_model_order(logits)
+            decode_numpy(self.searcher, logits)
+            res = self.searcher.result()
+            return res[0].sentence if res else ""
 
     def finalize(self) -> FinalOutput:
-        t0 = time.time()
-        results = self.searcher.finish_decoding()
-        final = self._finalize_results(results)
-        self.stats["finalize_time"] = time.time() - t0
-        LOG.info(f"Final:  {final.sentence}")
+        with span("serve.finalize", rid=self.request_id):
+            results = self.searcher.finish_decoding()
+            final = self._finalize_results(results)
+        LOG.info("Final:  %s", final.sentence)
         return final
 
     def _finalize_results(self, results: List[DecodeResult]) -> FinalOutput:
@@ -272,10 +283,9 @@ class DecoderService:
 
         if (cfg.rescore and self.rescore_lm is not None and nbest
                 and not self._internal_rescore):
-            t = time.time()
+            t = time.perf_counter()
             nbest = rescore_nbest_with_ngram(nbest, self.rescore_lm)
-            self.stats["rescore_time"] = time.time() - t
-            LOG.info("Rescore time: %.3f" % self.stats["rescore_time"])
+            LOG.info("Rescore time: %.3f", time.perf_counter() - t)
 
         if cfg.nbest > 1 and nbest:
             before = len(nbest)
@@ -294,13 +304,11 @@ class DecoderService:
         def done() -> FinalOutput:
             # timed from fetch start, not dispatch: under the pipelined
             # path the window between begin and done holds OTHER
-            # utterances' host work; in the serial path the forward
-            # completes inside the fetch, so this still measures the
-            # LLM stage
-            t = time.time()
+            # utterances' host work (the spans opt.dispatch and opt.fetch
+            # split the two)
+            t = time.perf_counter()
             out: RescoreOutput = finish()
-            self.stats["llm_time"] = time.time() - t
-            LOG.info("LLM rescore time: %.3f" % self.stats["llm_time"])
+            LOG.info("LLM rescore time: %.3f", time.perf_counter() - t)
             return FinalOutput(
                 sentence=out.best, nbest=out.nbest,
                 context=context, confidence=out.confidence,
@@ -364,7 +372,7 @@ class DecoderService:
                     self.decode_chunk(logits)
                     yield 1, [self.searcher.finish_decoding()]
 
-            return self._finalize_pipelined(stream())
+            return self._finalize_pipelined(stream(), fresh_ids=False)
 
         prepped = []
         for logits in logits_list:
@@ -392,13 +400,15 @@ class DecoderService:
         # host-side n-best extraction
         return self._finalize_pipelined(zip(sizes, searcher.decode_batches(batches)))
 
-    def _finalize_pipelined(self, batched_results) -> List[FinalOutput]:
+    def _finalize_pipelined(self, batched_results, fresh_ids: bool = True) -> List[FinalOutput]:
         """Finalize utterances from (n, nbest_lists) pairs with the LLM
         forwards software-pipelined: every utterance's forward is dispatched
         (``_finalize_begin``) before any fetch it doesn't depend on, bounded
         to ``window`` outstanding forwards so the device dispatch queue stays
         shallow. Without an LLM this degenerates to the plain loop (the
-        begin thunks are precomputed outputs)."""
+        begin thunks are precomputed outputs). Each utterance is a request
+        of its own: with ``fresh_ids`` it takes the next id, else the one
+        its ``reset`` gave."""
         window = 64
         pending: List = []
         outs: List[FinalOutput] = []
@@ -411,7 +421,10 @@ class DecoderService:
         if group_cap <= 0:
             for n, nbest_lists in batched_results:
                 for r in nbest_lists[:n]:
-                    pending.append(self._finalize_begin(r))
+                    if fresh_ids:
+                        self._start_request()
+                    with span("serve.finalize", rid=self.request_id):
+                        pending.append(self._finalize_begin(r))
                     if len(pending) > window:
                         outs.append(pending.pop(0)())
             outs.extend(p() for p in pending)
@@ -447,7 +460,10 @@ class DecoderService:
 
         for n, nbest_lists in batched_results:
             for r in nbest_lists[:n]:
-                nb = self._host_finalize(r)
+                if fresh_ids:
+                    self._start_request()
+                with span("serve.finalize", rid=self.request_id):
+                    nb = self._host_finalize(r)
                 if buf and n_cands + len(nb) > group_cap:
                     flush()
                 buf.append(nb)

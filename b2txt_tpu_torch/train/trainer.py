@@ -48,6 +48,7 @@ from ..utils.config import TrainConfig
 from ..utils.device import resolve_device
 from ..utils.logging import make_logger
 from ..utils.metrics import batch_greedy_per
+from ..utils.profiling import span
 from .checkpoint import load_checkpoint, save_checkpoint, to_tensor_tree
 from .optimizer import (clip_by_global_norm_, global_norm, make_optimizer,
                         set_learning_rates, trainability_mask)
@@ -174,19 +175,21 @@ class Trainer:
     def _logits(self, batch: Batch, training: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         """Augment/smooth → model. Returns (logits (B, P, C), adjusted lengths)."""
         cfg = self.cfg
-        feats = batch["input_features"].float()
-        n_time = batch["n_time_steps"]
-        if training and cfg.use_fused_preprocess:
-            feats, n_time = fused_preprocess(
-                feats, n_time, self.transform_args, training=True, generator=self.generator,
-                seed=self.seed * 1_000_003 + self.step,
-            )
-        else:
-            feats, n_time = transform_data(feats, n_time, self.transform_args, training,
-                                           generator=self.generator)
-        adjusted = self.model.adjusted_lengths(n_time)
-        logits = self.model(feats, batch["day_indicies"], compute_dtype=self.compute_dtype,
-                            training=training, generator=self.generator)
+        with span("train.augment"):
+            feats = batch["input_features"].float()
+            n_time = batch["n_time_steps"]
+            if training and cfg.use_fused_preprocess:
+                feats, n_time = fused_preprocess(
+                    feats, n_time, self.transform_args, training=True, generator=self.generator,
+                    seed=self.seed * 1_000_003 + self.step,
+                )
+            else:
+                feats, n_time = transform_data(feats, n_time, self.transform_args, training,
+                                               generator=self.generator)
+        with span("train.forward"):
+            adjusted = self.model.adjusted_lengths(n_time)
+            logits = self.model(feats, batch["day_indicies"], compute_dtype=self.compute_dtype,
+                                training=training, generator=self.generator)
         return logits, adjusted
 
     def _loss(self, logits: torch.Tensor, adjusted: torch.Tensor, batch: Batch):
@@ -198,27 +201,34 @@ class Trainer:
         """One update on a batch of device tensors. Returns (loss, grad_norm)
         as device scalars; grad_norm is taken after masking, before clipping.
         With a mesh, ``batch`` is the global batch and this rank takes its
-        rows."""
-        if self.sharded is not None:
-            loss, grad_norm = self._sharded_step(self.sharded, self._place_batch(batch))
-            self.step = self.sharded.step
-            return loss, grad_norm
-        logits, adjusted = self._logits(batch, training=True)
-        _, loss = self._loss(logits, adjusted, batch)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = []
-        for name, p in self.model.named_parameters():
-            if p.grad is None or not self.train_mask[name]:
-                p.grad = torch.zeros_like(p)  # frozen: zeros, so AdamW still steps them
-            grads.append(p.grad)
-        grad_norm = global_norm(grads)
-        if self.cfg.grad_norm_clip_value > 0:
-            clip_by_global_norm_(grads, self.cfg.grad_norm_clip_value, grad_norm)
-        set_learning_rates(self.optimizer, self.schedules, self.step)
-        self.optimizer.step()
-        self.step += 1
-        return loss.detach(), grad_norm
+        rows. Its span ``train.step`` holds ``train.augment``,
+        ``train.forward``, ``train.loss``, ``train.backward`` (the gradients
+        cleared, then autograd) and ``train.optimizer`` (masking, the norm,
+        clipping, the learning rates and AdamW)."""
+        with span("train.step"):
+            if self.sharded is not None:
+                loss, grad_norm = self._sharded_step(self.sharded, self._place_batch(batch))
+                self.step = self.sharded.step
+                return loss, grad_norm
+            logits, adjusted = self._logits(batch, training=True)
+            with span("train.loss"):
+                _, loss = self._loss(logits, adjusted, batch)
+            with span("train.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("train.optimizer"):
+                grads = []
+                for name, p in self.model.named_parameters():
+                    if p.grad is None or not self.train_mask[name]:
+                        p.grad = torch.zeros_like(p)  # frozen: zeros, so AdamW still steps them
+                    grads.append(p.grad)
+                grad_norm = global_norm(grads)
+                if self.cfg.grad_norm_clip_value > 0:
+                    clip_by_global_norm_(grads, self.cfg.grad_norm_clip_value, grad_norm)
+                set_learning_rates(self.optimizer, self.schedules, self.step)
+                self.optimizer.step()
+            self.step += 1
+            return loss.detach(), grad_norm
 
     @torch.no_grad()
     def eval_step(self, batch: Batch):

@@ -1,0 +1,18 @@
+"""online.llm_wait_ms: the median, over the traced trials (one request id a
+trial), of the program's spans ``opt.fetch`` summed over the trial (the
+fetch of OPT's scores: the wait for the forward's end and the copy to the
+host), in ms."""
+
+import statistics
+
+
+def read(run):
+    try:
+        from b2txt_tpu_torch.utils.profiling import records
+    except ImportError:
+        return None
+    per = {}
+    for r in records():
+        if r.name == "opt.fetch" and r.rid is not None and r.end_ns is not None:
+            per[r.rid] = per.get(r.rid, 0) + r.end_ns - r.start_ns
+    return statistics.median(per.values()) / 1e6 if per else None

@@ -1404,7 +1404,7 @@ def phase_cli(cfg, world, counters):
     logits of a model loaded from the result; (d) ``eval_45session_sim``'s
     path over 45 sessions × 8 trials in memory at full width, native, then
     device-resident; (e) ``utils.profiling.device_trace`` around one
-    connected stage-1 batch named with ``annotate``. K1's launches are
+    connected stage-1 batch inside a ``span``. K1's launches are
     counted in (c), (d) and (e), each from 0."""
     import tempfile
 
@@ -1417,7 +1417,7 @@ def phase_cli(cfg, world, counters):
     from b2txt_tpu_torch.scripts import eval_45session_sim as sim
     from b2txt_tpu_torch.scripts.evaluate_model import load_decoder
     from b2txt_tpu_torch.utils.config import DecodeConfig
-    from b2txt_tpu_torch.utils.profiling import annotate, device_trace
+    from b2txt_tpu_torch.utils.profiling import device_trace, span
 
     device = world["model"].h0.device
 
@@ -1522,7 +1522,7 @@ def phase_cli(cfg, world, counters):
 
         # (e) a profiled stage-1 batch
         def stage1():
-            with annotate(CLI_RANGE):
+            with span(CLI_RANGE):
                 return _batched_inference_device(model, first, **world["infer"])
 
         with device_trace(str(tmp / "trace")):

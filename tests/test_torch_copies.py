@@ -63,10 +63,14 @@ CHANGED = {
         '''REFERENCE_ROOT = os.environ.get("B2TXT_REFERENCE_ROOT", "reference")''',
         next(ln for ln in (ROOT / "b2txt_tpu/data/real_assets.py").read_text().splitlines()
              if ln.startswith("REFERENCE_ROOT = "))),
-    # the port's logger
-    "serve/redis_adapter.py": (
-        '''LOG = logging.getLogger("b2txt_tpu_torch.serve.redis")''',
-        '''LOG = logging.getLogger("b2txt_tpu.serve.redis")'''),
+    # the port's logger, and the request id a reset starts
+    "serve/redis_adapter.py": [
+        ('''LOG = logging.getLogger("b2txt_tpu_torch.serve.redis")''',
+         '''LOG = logging.getLogger("b2txt_tpu.serve.redis")'''),
+        ('''                # the request's id is the reset message's stream entry id
+                self.service.reset(request_id=last["reset"])
+''', '''                self.service.reset()
+''')],
     # the native trainer sums the unigram normalizers once per estimate (the
     # original sums them in every UnigramP call: quadratic in the vocabulary,
     # ~50 s at 125k words); integer sums, so the same floats

@@ -20,9 +20,13 @@ come to the host once per batch for sentence reconstruction.
 What differs from the JAX module, and why:
 
 - ``vmap`` over utterances is a batch dimension written out; ``lax.scan``
-  over frames is a Python loop that issues device work without syncing with
-  the host, so ``decode_batches`` overlaps batch j+1's frames with batch j's
-  host extraction as JAX's asynchronous dispatch does.
+  over frames issues device work without syncing with the host, so
+  ``decode_batches`` overlaps batch j+1's frames with batch j's host
+  extraction as JAX's asynchronous dispatch does. On the card, with a
+  ``DeviceNGram``, a batch's frames are replays of one CUDA graph of the
+  frame step (``_FrameGraph``): one launch call a frame where issuing the
+  step op by op takes ~600. Elsewhere (the CPU, the sharded search, the
+  streaming ``decode``) they are a Python loop over ``_expand``.
 - The three-key ``lax.sort`` is two stable sorts: on the Viterbi rank, then
   on one int64 key ordering (k1, k2) as unsigned 32-bit pairs. Each
   segment's last element is therefore its best path, the representative
@@ -50,7 +54,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Iterable, List, NamedTuple, Optional, Tuple, Union
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -68,6 +72,8 @@ from .lmbeam import DecodeResult
 
 NEG = -1.0e30
 _INT32_MIN = -(1 << 31)
+GRAPH_CACHE = 8      # captured frame steps a searcher keeps
+GRAPH_T_STEP = 64    # a captured step's frame capacity, in multiples of this
 
 
 def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -289,6 +295,51 @@ class _BatchHandle(NamedTuple):
     event: Optional[torch.cuda.Event]
 
 
+class _FrameGraph:
+    """The batched frame step in static form, for replay as a CUDA graph.
+
+    The step reads and writes buffers that keep their addresses: the beam
+    state (B, K, ·), the batch's log-probs (B, T_cap, V), its lengths (B,),
+    the frame counter ``t`` on the device and the backpointer rows (T_cap, B,
+    K). Each step reads frame ``t`` by index, keeps the beams of rows past
+    their length (on every frame: an all-true mask selects the new values
+    exactly), writes row ``t`` of the records and advances ``t``, so one
+    graph serves every frame of every batch of its shape. It holds its
+    ``dev_lm``, whose tensors the graph reads, so the id in its cache key
+    stays that LM's."""
+
+    def __init__(self, searcher: "DeviceLexiconBeamSearch", B: int, T_cap: int, V: int,
+                 device: torch.device):
+        self.args = searcher._step_args()
+        self.dev_lm = searcher.dev_lm
+        self.T_cap = T_cap
+        self.state = searcher._make_state(B)
+        K = self.state.s.shape[1]
+        self.lp = torch.zeros((B, T_cap, V), dtype=torch.float32, device=device)
+        self.lens = torch.zeros((B,), dtype=torch.int64, device=device)
+        self.t = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.parents = torch.zeros((T_cap, B, K), dtype=torch.int16, device=device)
+        self.words = torch.zeros((T_cap, B, K), dtype=torch.int32, device=device)
+        self.keep_k = torch.arange(K, dtype=torch.int32, device=device).expand(B, K)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def load(self, state: LmBeamState, lp: torch.Tensor, lens: torch.Tensor,
+             n_frames: int) -> None:
+        """A batch's initial state, its first ``n_frames`` frames and its
+        lengths into the buffers; ``t`` back to 0."""
+        for buf, x in zip(self.state, state):
+            buf.copy_(x)
+        self.lp[:, :n_frames].copy_(lp[:, :n_frames])
+        self.lens.copy_(lens)
+        self.t.zero_()
+
+    def result(self, n_frames: int):
+        """Copies of the final state and of the first ``n_frames`` record
+        rows, which the next batch's load leaves as they are."""
+        return (LmBeamState(*(b.clone() for b in self.state)),
+                (self.parents[:n_frames].clone(), self.words[:n_frames].clone()))
+
+
 class DeviceLexiconBeamSearch:
     """Stateful streaming decoder with the reset/decode/finalize protocol,
     plus batched decodes, running the search itself on the device."""
@@ -355,6 +406,9 @@ class DeviceLexiconBeamSearch:
         self.rescore_lm: Optional[DeviceNGram] = None
         if rescore_lm is not None:
             self.attach_rescore_lm(rescore_lm)
+        # captured frame steps by shape and step options, least recently
+        # used first
+        self._graphs: Dict[tuple, _FrameGraph] = {}
         self.reset()
 
     def attach_rescore_lm(self, lm) -> None:
@@ -666,17 +720,39 @@ class DeviceLexiconBeamSearch:
         frames). Frames past an utterance's length leave its beams as they
         are. Nothing here waits for the device: ``lengths`` is on the host.
         Returns the final state and the backpointers (parents int16, words
-        int32), each (T, B, K)."""
+        int32), each (T, B, K).
+
+        On the card with a ``DeviceNGram`` the frames replay a captured
+        frame step (``_scan_graph``); elsewhere they run op by op."""
         B, T, V = lp.shape
         K = state.s.shape[1]
-        args = self._step_args()
-        lens = _upload(np.asarray(lengths, np.int64), lp.device)
-        n_all = int(np.min(lengths, initial=T))   # frames every utterance has
-        keep_k = torch.arange(K, dtype=torch.int32, device=lp.device).expand(B, K)
-        parents, words = [], []
         if n_frames is None:
             n_frames = min(T, int(np.max(lengths, initial=0)))
         count("search.frames", n_frames)
+        if not n_frames:
+            empty = torch.empty((0, B, K), dtype=torch.int32, device=lp.device)
+            return state, (empty.to(torch.int16), empty)
+        lens = _upload(np.asarray(lengths, np.int64), lp.device)
+        if self._replays(lp):
+            return self._scan_graph(state, lp, lens, n_frames)
+        return self._scan_eager(state, lp, lengths, lens, n_frames)
+
+    def _replays(self, lp: torch.Tensor) -> bool:
+        """Whether ``lp``'s frames replay a captured frame step: on the card,
+        with a plain ``DeviceNGram`` (a subclass may probe through
+        collectives or the host)."""
+        return lp.device.type == "cuda" and type(self.dev_lm) is DeviceNGram
+
+    def _scan_eager(self, state: LmBeamState, lp: torch.Tensor, lengths: np.ndarray,
+                    lens: torch.Tensor, n_frames: int):
+        """``_scan_batch``'s frames op by op: ``_expand`` each frame, the
+        mask only past the frames every utterance has."""
+        B, T, V = lp.shape
+        K = state.s.shape[1]
+        args = self._step_args()
+        n_all = int(np.min(lengths, initial=T))   # frames every utterance has
+        keep_k = torch.arange(K, dtype=torch.int32, device=lp.device).expand(B, K)
+        parents, words = [], []
         for t in range(n_frames):
             new, par, _, wd = self._expand(state, lp[:, t], **args)
             if t < n_all:
@@ -689,10 +765,71 @@ class DeviceLexiconBeamSearch:
             # int16 backpointers: half the bytes to the host; K < 2^15
             parents.append(par.to(torch.int16))
             words.append(wd)
-        if not parents:
-            empty = torch.empty((0, B, K), dtype=torch.int32, device=lp.device)
-            return state, (empty.to(torch.int16), empty)
         return state, (torch.stack(parents), torch.stack(words))
+
+    def _frame_step(self, fg: _FrameGraph) -> None:
+        """One frame of ``fg``'s batch, in place: the static form of
+        ``_scan_eager``'s loop body, masked on every frame."""
+        lp = fg.lp.index_select(1, fg.t)[:, 0]
+        new, par, _, wd = self._expand(fg.state, lp, **fg.args)
+        active = fg.lens > fg.t
+        for buf, x in zip(fg.state, _select(active, new, fg.state)):
+            buf.copy_(x)
+        par = torch.where(active[:, None], par, fg.keep_k)
+        fg.parents.index_copy_(0, fg.t, par.to(torch.int16)[None])
+        fg.words.index_copy_(0, fg.t, torch.where(active[:, None], wd, -1)[None])
+        fg.t += 1
+
+    def _frame_graph(self, B: int, V: int, n_frames: int, device: torch.device) -> _FrameGraph:
+        """The captured frame step for this shape, these step options and
+        this LM: from the cache, or captured now (after two warm-up steps on
+        a side stream). A batch longer than the entry's frame capacity
+        captures anew with a larger one."""
+        key = (device, B, V, self.config.beam_width, max(self.order - 1, 1), self.H,
+               tuple(sorted(self._step_args().items())), self.close_top, self.state_key,
+               id(self.dev_lm))
+        fg = self._graphs.pop(key, None)
+        if fg is not None and fg.T_cap < n_frames:
+            fg = None   # its graph and memory pool go before the new capture
+        if fg is None:
+            fg = _FrameGraph(self, B, -(-n_frames // GRAPH_T_STEP) * GRAPH_T_STEP, V, device)
+            self._capture(fg)
+        self._graphs[key] = fg     # the most recently used last
+        if len(self._graphs) > GRAPH_CACHE:
+            del self._graphs[next(iter(self._graphs))]
+        return fg
+
+    def _capture(self, fg: _FrameGraph) -> None:
+        """Two warm-up steps of ``fg`` on a side stream, then one step
+        captured into its CUDA graph."""
+        device = fg.t.device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fg.t.zero_()
+                self._frame_step(fg)
+        torch.cuda.current_stream(device).wait_stream(side)
+        fg.graph = torch.cuda.CUDAGraph()
+        # only this thread's calls are checked during the capture: another
+        # thread of the program may be using the card at the time (the
+        # training loader's prefetch thread uploads from one)
+        with torch.cuda.graph(fg.graph, capture_error_mode="thread_local"):
+            self._frame_step(fg)
+        count("search.graph_captures")
+
+    def _scan_graph(self, state: LmBeamState, lp: torch.Tensor, lens: torch.Tensor,
+                    n_frames: int):
+        """``_scan_batch``'s frames as ``n_frames`` replays of the captured
+        frame step: one launch call a frame."""
+        B, _, V = lp.shape
+        with torch.inference_mode():
+            fg = self._frame_graph(B, V, n_frames, lp.device)
+            fg.load(state, lp, lens, n_frames)
+            for _ in range(n_frames):
+                fg.graph.replay()
+            count("search.graph_frames", n_frames)
+            return fg.result(n_frames)
 
     def _finalize(self, st: LmBeamState):
         """Close open words (no acoustic cost) + </s>; returns per-candidate

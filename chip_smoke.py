@@ -22,7 +22,10 @@ then:
   tables on the card with the unpruned one for the on-card pool rescore, 512
   planted requests in batches of 128 whose posteriors go from the GRU
   straight into the device beam search, then to the host through the native
-  C++ searcher;
+  C++ searcher; and 32 rows of one batch (5 of them padding, the session
+  evaluation's search shape) with the frames replayed from the search's
+  captured CUDA graph against the same frames issued op by op, bit for bit,
+  with each path's ms and launch calls a frame;
 - evaluates three planted sessions of 64 trials held in memory over that
   world (``evaluate``: ``evaluate_session_data`` with the native searcher,
   device-resident with the device searcher, ``run_single_decoding_step``,
@@ -155,6 +158,11 @@ CONNECTED_DECODE = dict(acoustic_scale=0.325, blank_penalty=90.0, nbest=100, bea
 # ops, but exp/log1p may differ in the last bit between the two devices, and
 # one ulp per frame over 125 frames of scores near 100 sums to ~1e-4
 SEARCH_TOL = 1e-4        # relative and absolute, as np.allclose
+# the session evaluation's device batch (the harness pads every batch to it)
+EVAL_SEARCH_BATCH = 32
+# the profiler's host events of one launch call
+LAUNCH_EVENTS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch"}
 GATHER_GRID = [(rw, g) for rw in (4, 64, 128) for g in (1, 37, 4096)]
 # session evaluation: three planted sessions on distinct days of TrainConfig()'s
 # session list, over the connected world; run_single_decoding_step on a few trials
@@ -953,6 +961,90 @@ def profile_call(run, top: int = 6, settle_s: float = 0.0):
             "top": [{"name": k[:80], "ms": ms, "calls": n} for ms, k, n in rows[:top]]}
 
 
+def search_graph_against_eager(searcher, lp, lens):
+    """One batch of the device search with its frames replayed from the
+    captured CUDA graph and issued op by op (``_scan_eager``): final state,
+    records and n-best (with the on-card rescore) bit for bit, every frame
+    replayed; each path's ms a frame (host clock to a sync, the mean of two
+    runs in turns graph, eager, eager, graph, after one of each; and to the
+    return, the host's issue) and launch
+    calls a frame (the profiler's host launch events over one run), and the
+    device memory the capture reserved (buffers, the graph's pool and the
+    outputs held)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from b2txt_tpu_torch.utils.profiling import counters, tracing
+
+    with torch.inference_mode():
+        lp, lens, log_bp = searcher._prep_batch(lp, lens)
+        if log_bp != 0.0:
+            lp[:, :, searcher.blank] -= log_bp
+        B, n = lp.shape[0], min(lp.shape[1], int(lens.max()))
+        lens_dev = torch.from_numpy(lens.astype(np.int64)).to(lp.device)
+        paths = {
+            "graph": lambda: searcher._scan_batch(searcher._make_state(B), lp, lens),
+            "eager": lambda: searcher._scan_eager(searcher._make_state(B), lp, lens, lens_dev, n),
+        }
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        with tracing():
+            out = {"graph": paths["graph"]()}
+        c = counters()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        capture_bytes = torch.cuda.memory_reserved() - reserved
+        out["eager"] = paths["eager"]()
+        nbest = {}
+        for name, (st, recs) in out.items():
+            final = tuple(t.cpu().numpy() for t in searcher._finalize(st))
+            nbest[name] = searcher._extract_results(final, tuple(r.cpu().numpy() for r in recs),
+                                                    None)
+        secs = {"graph": [], "eager": []}
+        issue = {"graph": [], "eager": []}
+        for name in ("graph", "eager", "eager", "graph"):
+            t0 = time.perf_counter()
+            paths[name]()
+            issue[name].append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+        # the host's issue alone: behind a ~0.5 s device sleep the issue
+        # neither waits for the card nor, unless the launch queue fills, is
+        # held back by it
+        behind_sleep = {}
+        for name, fn in paths.items():
+            torch.cuda._sleep(10 * BUSY_CYCLES)
+            t0 = time.perf_counter()
+            fn()
+            behind_sleep[name] = 1e3 * (time.perf_counter() - t0) / n
+            torch.cuda.synchronize()
+        launches = {}
+        for name, fn in paths.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            launches[name] = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_EVENTS)
+    st_g, recs_g = out["graph"]
+    st_e, recs_e = out["eager"]
+    state_equal = all(torch.equal(a, b) for a, b in zip(st_g, st_e))
+    records_equal = all(torch.equal(a, b) for a, b in zip(recs_g, recs_e))
+    fig = {"B": B, "K": searcher.config.beam_width, "first_beam": searcher.config.first_beam_size,
+           "frames": n, "padding_rows": int((lens == 0).sum()),
+           "state_equal": state_equal, "records_equal": records_equal,
+           "nbest_equal": nbest["graph"] == nbest["eager"],
+           "nbest_rows": sum(len(r) for r in nbest["graph"]),
+           "counters": c, "capture_reserved_bytes": capture_bytes,
+           "ms_per_frame": {k: 1e3 * sum(v) / len(v) / n for k, v in secs.items()},
+           "issue_ms_per_frame": {k: 1e3 * sum(v) / len(v) / n for k, v in issue.items()},
+           "issue_ms_per_frame_behind_sleep": behind_sleep,
+           "launch_calls_per_frame": {k: v / n for k, v in launches.items()},
+           "clock": "host, to a sync"}
+    fig["ok"] = (state_equal and records_equal and fig["nbest_equal"] and fig["nbest_rows"] > 0
+                 and c.get("search.graph_frames") == c.get("search.frames") == n)
+    return fig
+
+
 def check_serve(fig, logits, plain, cfg, main_shape) -> list:
     problems = []
     n_batches = fig["batches"]
@@ -1149,6 +1241,11 @@ def phase_serve_connected(cfg, device: str, counters):
              "collect_ms": (t3 - t2) * 1e3}
     profile = profile_call(lambda: searcher._collect_batch(searcher._dispatch_batch(lp, lens)),
                              top=10)
+    # the eval cell's search shape: 32 rows, the last 5 padding, 8 shorter
+    lens32 = lens[:EVAL_SEARCH_BATCH].copy()
+    lens32[-5:] = 0
+    lens32[:8] -= np.arange(8, dtype=lens32.dtype)
+    graph_fig = search_graph_against_eager(searcher, lp[:EVAL_SEARCH_BATCH], lens32)
     fig = {"phase": "serve_connected", "vocab": CONNECTED_VOCAB, "order": 3,
            "prune_threshold": PRUNE_THRESHOLD, "decode": CONNECTED_DECODE,
            "max_homophones": 4, "H": searcher.H, "state_key": "history",
@@ -1162,7 +1259,7 @@ def phase_serve_connected(cfg, device: str, counters):
            "sentences_per_s": len(requests) / (stage1_s + decode_s),
            "stage1_ms_per_batch": stage1_s * 1e3 / n_batches,
            "decode_ms_per_batch": decode_s * 1e3 / n_batches,
-           "one_batch_split": split, "decode_profile": profile,
+           "one_batch_split": split, "decode_profile": profile, "graph_vs_eager": graph_fig,
            "world_build_s": world_s, "prune_s": prune_s, "table_build_s": table_s,
            "device_table_bytes": sizes_bytes, "launches": launches}
     emit(fig)
@@ -1715,6 +1812,9 @@ def check_connected(fig, n_layers) -> list:
                         f"exact, {fig['native_search_errors']} search errors, WER "
                         f"{fig['native_wer']}, top-1 equal to the device searcher's on "
                         f"{fig['native_equals_device']}")
+    if not fig["graph_vs_eager"]["ok"]:
+        problems.append(f"serve_connected: the device search's graph replay against its "
+                        f"eager loop: {fig['graph_vs_eager']}")
     return problems
 
 

@@ -403,3 +403,47 @@ def test_segment_sums_repeat_and_match_float64():
     ref = torch.zeros(1000, dtype=torch.float64, device="cuda").index_add_(0, seg, values.double())
     torch.testing.assert_close(runs[0].double(), ref, rtol=1e-5, atol=1e-3)
     assert torch.equal(runs[0][700:], torch.zeros(300, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sum_mode", [False, True])
+def test_device_search_graph_replay_equals_eager_loop(sum_mode):
+    """The device search's frames replayed from one captured CUDA graph
+    against the same frames issued op by op, at the session evaluation's
+    search shape (B = 32 with padding rows, K = 48, first beam 8): final
+    state, backpointers, words and n-best bit for bit, for two batches
+    through one graph; every frame replayed, one capture."""
+    from b2txt_tpu_torch.decode.lmbeam_device import DeviceLexiconBeamSearch, LmBeamState
+    from b2txt_tpu_torch.utils.config import DecodeConfig
+    from b2txt_tpu_torch.utils.profiling import counters, tracing
+
+    _need_card()
+    lexicon, lm, _, batch, lens = _small_decode_world()
+    rows = np.arange(32) % 3
+    cfg = DecodeConfig(acoustic_scale=0.325, blank_penalty=2.0, nbest=10, beam_width=48,
+                       first_beam_size=8, sum_mode=sum_mode)
+    s = DeviceLexiconBeamSearch(lexicon, lm, cfg, device="cuda")
+    batches = []
+    for shift in (0, 1):    # the second batch: other rows, shorter
+        r = np.roll(rows, shift)
+        lengths = np.where(np.arange(32) % 7 == 6, 0,
+                           lens[r] - (np.arange(32) + shift) % 5 - 3 * shift).astype(np.int32)
+        batches.append((torch.from_numpy(batch[r]).cuda(), lengths))
+    with tracing(), torch.inference_mode():
+        replayed = [s._scan_batch(s._make_state(32), lp, n) for lp, n in batches]
+    c = counters()
+    frames = sum(int(n.max()) for _, n in batches)
+    assert c["search.frames"] == c["search.graph_frames"] == frames
+    assert c["search.graph_captures"] == 1
+    for (lp, n), (st_g, recs_g) in zip(batches, replayed):
+        with torch.inference_mode():
+            n_dev = torch.from_numpy(n.astype(np.int64)).cuda()
+            st_e, recs_e = s._scan_eager(s._make_state(32), lp, n, n_dev, int(n.max()))
+        for name, a, b in zip(LmBeamState._fields, st_g, st_e):
+            assert torch.equal(a, b), name
+        assert recs_g[0].dtype == torch.int16 and torch.equal(recs_g[0], recs_e[0])
+        assert torch.equal(recs_g[1], recs_e[1])
+        nbest = [s._extract_results(tuple(t.cpu().numpy() for t in s._finalize(st)),
+                                    tuple(r.cpu().numpy() for r in recs), None)
+                 for st, recs in ((st_g, recs_g), (st_e, recs_e))]
+        assert nbest[0] == nbest[1] and any(nbest[0])

@@ -51,7 +51,6 @@ What differs from the JAX module, and why:
 from __future__ import annotations
 
 import logging
-import zlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
@@ -60,9 +59,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.segment import segment_sum
 from ..utils.device import resolve_device, upload
-from ..utils.profiling import current_rid, span
+from .packed_scorer import (PackedScorer, _fetcher, _packed_sums, _segment_sum,  # noqa: F401
+                            pack_sequences, score_packed_fn, score_tokens_fn, word_hash_encode)
 
 POS_OFFSET = 2  # OPT's learned-position offset (OPTLearnedPositionalEmbedding)
 
@@ -430,54 +429,6 @@ def params_to_jax(state_dict: StateDict, cfg: OPTConfig) -> Dict[str, Any]:
                      "b": a("model.decoder.final_layer_norm.bias")}}
 
 
-def _next_token_lp(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """log P(tokens[:, t+1] | tokens[:, :t+1]) for t < L-1: (B, L-1)."""
-    lp = torch.log_softmax(logits[:, :-1], dim=-1)
-    return lp.gather(2, tokens[:, 1:, None].long())[..., 0]
-
-
-def _segment_sum(data: torch.Tensor, seg: torch.Tensor, n_segments: int) -> torch.Tensor:
-    return segment_sum(data.reshape(-1).float(), seg.reshape(-1).long(), n_segments)
-
-
-def score_tokens_fn(compute_dtype: torch.dtype = torch.float32):
-    """Returns f(model, tokens, mask) → (sum log P(token), n_scored) per
-    row — the reference's rescore_with_gpt2 numerator (standalone :127-161)."""
-
-    def score(model: OPTModel, tokens, mask):
-        tok_lp = _next_token_lp(model(tokens, mask, compute_dtype), tokens) * mask[:, 1:]
-        return tok_lp.sum(dim=1), mask.sum(dim=1)
-
-    return score
-
-
-def _packed_sums(logits, tokens, segment_ids, n_segments):
-    """Per-segment Σ log P(t → t+1) over pairs inside one segment."""
-    tok_lp = _next_token_lp(logits, tokens)                       # (B, L-1)
-    valid = (segment_ids[:, :-1] == segment_ids[:, 1:]) & (segment_ids[:, 1:] > 0)
-    seg = torch.where(valid, segment_ids[:, 1:], 0)
-    return _segment_sum(tok_lp * valid, seg, n_segments)
-
-
-def score_packed_fn(n_segments: int, compute_dtype: torch.dtype = torch.float32):
-    """Packed-row variant of :func:`score_tokens_fn`: rows carry several
-    independent hypotheses (block-diagonal causal attention via
-    ``segment_ids``), and per-hypothesis (Σ log P, n_tokens) come back as
-    segment sums indexed by segment id (1-based; index 0 collects padding
-    and cross-segment boundaries and is discarded)."""
-
-    def score(model: OPTModel, tokens, segment_ids, positions):
-        mask = (segment_ids > 0).float()
-        logits = model(tokens, mask, compute_dtype, positions=positions,
-                       segment_ids=segment_ids)
-        sums = _packed_sums(logits, tokens, segment_ids, n_segments)
-        # n_tokens counts every real token of the segment (the first,
-        # unscored one included) — the unpacked path's mask.sum parity
-        return sums, _segment_sum(mask, segment_ids, n_segments)
-
-    return score
-
-
 def score_prefix_packed_fn(n_segments: int, compute_dtype: torch.dtype = torch.float32,
                            meet: Optional[Callable] = None):
     """Shared-context variant of :func:`score_packed_fn` (the reference's
@@ -521,60 +472,9 @@ def score_prefix_packed_fn(n_segments: int, compute_dtype: torch.dtype = torch.f
     return score
 
 
-def word_hash_encode(vocab_size: int) -> Callable[[str, int], List[int]]:
-    """Stable ~1-token-per-word encoder for throughput drives with random
-    weights: matches GPT2-BPE's token COUNT on short hypotheses (~1.3
-    tokens/word) without needing the vocab files. Real deployments pass
-    utils.bpe.ByteBPE.for_opt(...) instead."""
-
-    def enc(text: str, max_len: int) -> List[int]:
-        ids = [2]  # OPT BOS
-        for w in text.split():
-            # crc32, not hash(): builtin str hash is salted per process and
-            # would make a drive's scores/exact counts non-reproducible
-            ids.append((zlib.crc32(w.encode()) % (vocab_size - 10)) + 10)
-        return ids[:max_len]
-
-    return enc
-
-
-def pack_sequences(ids: Sequence[Sequence[int]], capacity: int):
-    """First-fit-decreasing bin packing of token id lists into rows of
-    ``capacity`` tokens. Returns rows: for each row a list of
-    (original_index, seq) pairs."""
-    order = sorted(range(len(ids)), key=lambda i: -len(ids[i]))
-    rows: List[List[tuple]] = []
-    space: List[int] = []
-    for i in order:
-        seq = list(ids[i])[:capacity]
-        for r, free in enumerate(space):
-            if free >= len(seq):
-                rows[r].append((i, seq))
-                space[r] = free - len(seq)
-                break
-        else:
-            rows.append([(i, seq)])
-            space.append(capacity - len(seq))
-    return rows
-
-
-def _fetcher(sums: torch.Tensor, cnt: torch.Tensor, lo: int, n: int,
-             length_penalty: float) -> Callable[[], List[float]]:
-    """The thunk that waits for the device: scores lo..lo+n-1. Its span
-    carries the request id of the dispatch that made it."""
-    rid = current_rid()
-
-    def fetch() -> List[float]:
-        with span("opt.fetch", rid=rid):
-            s = sums[lo : lo + n].cpu().numpy()
-            c = cnt[lo : lo + n].cpu().numpy()
-            return (s - c * np.float32(length_penalty)).tolist()
-
-    return fetch
-
-
-class OPTRescorer:
-    """LLMScorer over the OPT forward. score(texts) = Σ token log-probs −
+class OPTRescorer(PackedScorer):
+    """LLMScorer over the OPT forward (``PackedScorer`` with OPT's mesh and
+    shared-context path). score(texts) = Σ token log-probs −
     length_penalty · n_tokens (parity: rescore_with_gpt2, standalone
     :127-161). ``encode`` maps text → token ids — the reference uses the HF
     GPT2-BPE tokenizer (standalone :115-123); pass a
@@ -584,7 +484,7 @@ class OPTRescorer:
     emitted. ``params`` is a state dict in the port's layout
     (``init_params``, ``params_from_hf``, ``params_from_jax``); without it the
     weights are drawn from ``seed``. Runs on ``device`` (None = the CUDA
-    card).
+    card). Its spans are ``opt.dispatch`` and ``opt.fetch``.
 
     ``mesh`` (a ("data", "model") ``DeviceMesh``, one process per position,
     every rank scoring the same texts): the model is tensor-parallel over
@@ -593,6 +493,8 @@ class OPTRescorer:
     Packed segment sums meet in an all_reduce over the data group, row sums
     in an all-gather; a context stays whole on every rank. Every rank
     returns every score."""
+
+    span_name = "opt"
 
     def __init__(
         self,
@@ -608,16 +510,13 @@ class OPTRescorer:
         mesh=None,
     ):
         if mesh is None:
-            self.device = resolve_device(device)
+            device = resolve_device(device)
         else:
             from ..parallel.mesh import mesh_device
 
-            self.device = mesh_device(device)
+            device = mesh_device(device)
         self.mesh = mesh
         self.cfg = cfg
-        self.max_len = min(max_len, cfg.max_position_embeddings)
-        self.pack = pack
-        self.compute_dtype = compute_dtype
         if encode is None:
             logging.getLogger("b2txt_tpu_torch.opt").warning(
                 "OPTRescorer: no tokenizer supplied — falling back to a "
@@ -639,15 +538,15 @@ class OPTRescorer:
             # chunk), so encode(ctx) + encode(" "+hyp, no BOS) equals
             # encode(ctx+" "+hyp) — tested in tests/test_bpe.py
             encode_cont = lambda t, n: encode.encode(t, add_bos=False)[:n]  # noqa: E731
-        self.encode = encode
         self.encode_cont = encode_cont
         # llm_rescore passes context separately to scorers advertising this
         # (the prefix-KV path scores it once instead of per candidate)
         self.supports_context = True
         if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(cfg, self.device, torch.float32, gen)
-        self.model = OPTModel.from_state_dict(cfg, params, self.device, mesh=mesh)
+            gen = torch.Generator(device=device).manual_seed(seed)
+            params = init_params(cfg, device, torch.float32, gen)
+        super().__init__(OPTModel.from_state_dict(cfg, params, device, mesh=mesh), encode,
+                         device, min(max_len, cfg.max_position_embeddings), compute_dtype, pack)
         self.prefix_runs = 0   # context scorings that took the prefix-KV path
 
     def _my_rows(self, *arrays: np.ndarray) -> List[np.ndarray]:
@@ -661,6 +560,8 @@ class OPTRescorer:
     def _meet(self, sums: torch.Tensor, cnt: torch.Tensor):
         """Per-segment sums of every data rank's rows, summed (a segment
         lies in one row: the other ranks add zeros)."""
+        if self.mesh is None:
+            return sums, cnt
         import torch.distributed as dist
 
         both = torch.stack([sums, cnt])
@@ -669,46 +570,21 @@ class OPTRescorer:
 
     def _gather(self, sums: torch.Tensor, cnt: torch.Tensor):
         """Per-row sums of every data rank's rows, in row order."""
+        if self.mesh is None:
+            return sums, cnt
         from ..parallel.comm import gather_shards
 
         both = gather_shards(torch.stack([sums, cnt]), 1, self.mesh.get_group("data"))
         return both[0], both[1]
 
-    def _pack_arrays(self, ids: List[List[int]]):
-        """First-fit-decreasing packing of token lists into rows of
-        ``L`` tokens (at least 64, a multiple of 16): exactly as many rows
-        and segment bins (+1, the index-0 trash bin) as the lists need."""
-        longest = max((len(s) for s in ids), default=1)
-        L = min(self.max_len, max(64, -(-longest // 16) * 16))
-        rows = pack_sequences(ids, L)
-        B = max(len(rows), 1)
-        tokens = np.zeros((B, L), np.int64)
-        seg = np.zeros((B, L), np.int64)
-        pos = np.zeros((B, L), np.int64)
-        for r, row in enumerate(rows):
-            off = 0
-            for orig_idx, s in row:
-                tokens[r, off : off + len(s)] = s
-                seg[r, off : off + len(s)] = orig_idx + 1
-                pos[r, off : off + len(s)] = np.arange(len(s))
-                off += len(s)
-        return tokens, seg, pos, len(ids) + 1
-
-    def _score_packed_begin(
-        self, ids: List[List[int]], length_penalty: float
-    ) -> Callable[[], List[float]]:
-        """Pack the hypotheses several-per-row (block-diagonal attention):
-        the forward runs over ~real-token counts instead of one padded row
-        per hypothesis. Score-identical to the unpacked path. Enqueues the
-        forward on the device and returns the fetch; only the fetch waits."""
-        tokens, seg, pos, n_segments = self._pack_arrays(ids)
-        up = lambda a: upload(a, self.device)  # noqa: E731
-        with torch.inference_mode():
-            sums, cnt = score_packed_fn(n_segments, self.compute_dtype)(
-                self.model, *map(up, self._my_rows(tokens, seg, pos)))
-            if self.mesh is not None:
-                sums, cnt = self._meet(sums, cnt)
-        return _fetcher(sums, cnt, 1, len(ids), length_penalty)
+    def _context_begin(self, context: str, texts: Sequence[str],
+                       length_penalty: float) -> Optional[Callable[[], List[float]]]:
+        """The prefix-KV path (the context's forward runs once) where the
+        rows are packed and continuations can be encoded; else None
+        (concatenation, identical totals)."""
+        if self.pack and self.encode_cont is not None:
+            return self._score_prefix_begin(context, texts, length_penalty)
+        return None
 
     def _score_prefix_begin(
         self, context: str, texts: Sequence[str], length_penalty: float
@@ -738,56 +614,4 @@ class OPTRescorer:
                 self.model, up(np.asarray([ctx_ids], np.int64)), len(ctx_ids),
                 *map(up, self._my_rows(tokens, seg, pos)))
         self.prefix_runs += 1
-        return _fetcher(sums, cnt, 1, len(ids), length_penalty)
-
-    def _score_unpacked_begin(
-        self, ids: List[List[int]], length_penalty: float
-    ) -> Callable[[], List[float]]:
-        """One right-padded row per hypothesis."""
-        n = len(ids)
-        L = min(self.max_len, max(1, max((len(i) for i in ids), default=1)))
-        tokens = np.zeros((max(n, 1), L), np.int64)
-        mask = np.zeros((max(n, 1), L), np.float32)
-        for i, seq in enumerate(ids):
-            tokens[i, : len(seq)] = seq[:L]
-            mask[i, : len(seq)] = 1.0
-        tokens, mask = self._my_rows(tokens, mask)
-        with torch.inference_mode():
-            sums, n_tok = score_tokens_fn(self.compute_dtype)(
-                self.model, upload(tokens, self.device), upload(mask, self.device))
-            if self.mesh is not None:
-                sums, n_tok = self._gather(sums, n_tok)
-        return _fetcher(sums, n_tok, 0, n, length_penalty)
-
-    def score_async(
-        self,
-        texts: Sequence[str],
-        length_penalty: float = 0.0,
-        context: Optional[str] = None,
-    ) -> Callable[[], List[float]]:
-        """Enqueue the scoring forward on the device NOW; the returned
-        zero-arg callable fetches the scores. Lets a caller overlap the next
-        utterance's host finalize work (augment, packing) with this
-        utterance's forward — see decode/rescore.py llm_rescore_async.
-
-        With ``context``, each text is scored as context+text (the
-        reference's conversational mode, standalone :165-199) — via the
-        prefix-KV path (context forward runs once) when available, else by
-        concatenation (identical totals either way)."""
-        with span("opt.dispatch"):
-            if context:
-                if self.pack and self.encode_cont is not None:
-                    return self._score_prefix_begin(context, texts, length_penalty)
-                texts = [context + " " + t for t in texts]
-            ids = [self.encode(t, self.max_len) for t in texts]
-            if self.pack:
-                return self._score_packed_begin(ids, length_penalty)
-            return self._score_unpacked_begin(ids, length_penalty)
-
-    def score(
-        self,
-        texts: Sequence[str],
-        length_penalty: float = 0.0,
-        context: Optional[str] = None,
-    ) -> List[float]:
-        return self.score_async(texts, length_penalty, context=context)()
+        return _fetcher(sums, cnt, 1, len(ids), length_penalty, "opt.fetch")

@@ -113,3 +113,9 @@ def row_gather_library() -> Built:
 def preprocess_library() -> Built:
     """K3, ``csrc/preprocess.cu``, with its C signature declared."""
     return _declare(build("preprocess.cu"), "b2t_preprocess", 5, 10, 3)
+
+
+@functools.lru_cache(maxsize=None)
+def moe_grouped_library() -> Built:
+    """K5, ``csrc/moe_grouped.cu``, with its C signature declared."""
+    return _declare(build("moe_grouped.cu"), "b2t_moe_experts", 8, 6)

@@ -193,6 +193,14 @@ OPT_BF16_TOL = dict(rtol=2e-2, atol=0.35)
 OPT_PREFIX_TOL = dict(rtol=2e-2, atol=0.5)
 # the full finalize as bench_opt.py stage C sets it, on the connected world
 FINALIZE_KNOBS = dict(do_opt=True, alpha=0.55)
+# DeepSeek-V2-Lite in the rescorer: the benchmark cell's σ of random weights
+# (at DeepSeek's 0.006 random routers collapse onto a few experts with depth),
+# the lattice n-best of the native searcher, one packed forward a finalize
+DSV2_SEED = 12
+DSV2_INIT_STD = 0.02
+DSV2_DECODE = dict(acoustic_scale=0.325, blank_penalty=90.0, nbest=100, beam=17.0,
+                   sum_mode=False, lattice_nbest=True, lattice_beam=8.0, **FINALIZE_KNOBS)
+DSV2_CHUNK = 32            # frames a decode_chunk call, as the online cells
 LLM_GROUP = 96
 # the CTC prefix beam searcher on the connected batch's posteriors against
 # the numpy oracle (float64 on the host): the reference test's tolerance
@@ -315,7 +323,8 @@ def phase_build():
 
     from b2txt_tpu_torch import runtime
     from b2txt_tpu_torch.ops._build import (gru_bwd_library, gru_fwd_library,
-                                            preprocess_library, row_gather_library)
+                                            moe_grouped_library, preprocess_library,
+                                            row_gather_library)
 
     def native():
         t0 = time.perf_counter()
@@ -325,7 +334,7 @@ def phase_build():
     t0 = time.perf_counter()
     libs = {"gru_fwd.cu": gru_fwd_library, "gru_bwd.cu": gru_bwd_library,
             "row_gather.cu": row_gather_library, "preprocess.cu": preprocess_library,
-            "native": native}
+            "moe_grouped.cu": moe_grouped_library, "native": native}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(fn) for name, fn in libs.items()}
         built = {name: f.result() for name, f in futures.items()}
@@ -678,6 +687,138 @@ def phase_kernel_fused_preprocess(B: int, T: int, C: int):
            "plain_ms": plain_ms,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None}
     emit(fig)
+    return fig
+
+
+def phase_kernel_moe(T: int = 64, E: int = 64, k: int = 6, D: int = 2048, Fm: int = 1408):
+    """K5, the grouped expert kernel, at the DeepSeek-V2-Lite rescorer's
+    shapes (a packed forward's ~64 tokens, 64 experts, top-6, hidden 2048,
+    expert width 1408; bf16): against its plain version, with no host sync
+    inside the call, and timed against its bound, the touched experts'
+    weights read once plus the activations. Returns the figures."""
+    import torch
+
+    from b2txt_tpu_torch.ops.moe import moe_experts, moe_experts_plain, route
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x = torch.randn((T, D), generator=gen, device="cuda").bfloat16()
+    gate = torch.randn((E, D), generator=gen, device="cuda").bfloat16() * 0.006
+    gate_up = (torch.randn((E, 2 * Fm, D), generator=gen, device="cuda") * 0.006).bfloat16()
+    down = (torch.randn((E, D, Fm), generator=gen, device="cuda") * 0.006).bfloat16()
+    w, idx, counts = route(x, gate, k, 1.0, torch.ones(T, dtype=torch.bool, device="cuda"))
+    before = moe_experts.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe_experts(x, idx, w, gate_up, down, counts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = moe_experts.launches - before
+    want = moe_experts_plain(x, idx, w, gate_up, down)
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    touched = int((counts[:E] > 0).sum())
+    ms = cuda_ms(lambda: moe_experts(x, idx, w, gate_up, down, counts), iters=20)
+    plain_ms = cuda_ms(lambda: moe_experts_plain(x, idx, w, gate_up, down), iters=5)
+    pairs = T * k
+    nbytes = (touched * 3 * D * Fm * 2 + T * D * 2 + pairs * 2 * Fm * 2 + pairs * D * 4)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    fig = {"phase": "kernel_moe", "T": T, "E": E, "k": k, "D": D, "Fm": Fm,
+           "experts_touched": touched, "max_abs_err": err, "max_abs_out": scale,
+           "tol": "2e-2 of the largest output", "ok": err <= 2e-2 * scale,
+           "launches": launches, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes", "share_of_bound": bound_ms / ms,
+           "library_ms": None}
+    emit(fig)
+    if not fig["ok"]:
+        raise RuntimeError(f"moe_experts disagrees with its plain version: {err} of {scale}")
+    return fig
+
+
+def phase_finalize_dsv2(world, logits, requests):
+    """DeepSeek-V2-Lite at full width (27 layers, hidden 2048, 64 experts
+    top-6 and 2 shared, vocabulary 102,400; 31.4 GB of random bf16 weights
+    drawn on the card) as ``DecoderService``'s LLM on the serve phase's
+    posteriors: the native searcher in 32-frame chunks, its lattice n-best
+    and ``finalize``'s α-blend, one utterance at a time, after one round
+    that captures each packed shape's graph. K5's launch count is set to 0
+    just before the timed round and read after it: 2 a MoE layer, 52 a
+    packed forward, counted at each replay. Returns the figures."""
+    import tempfile
+
+    import torch
+
+    from b2txt_tpu_torch.decode.deepseek_lm import (DeepseekV2Config, DeepseekV2Rescorer,
+                                                    init_params)
+    from b2txt_tpu_torch.decode.packed_scorer import word_hash_encode
+    from b2txt_tpu_torch.ops.moe import moe_experts
+    from b2txt_tpu_torch.serve import DecoderService
+    from b2txt_tpu_torch.utils.config import DecodeConfig
+
+    lexicon, lm = world
+    cfg = DeepseekV2Config.deepseek_v2_lite()
+    t0 = time.perf_counter()
+    params = init_params(cfg, "cuda", torch.bfloat16,
+                         torch.Generator(device="cuda").manual_seed(DSV2_SEED), std=DSV2_INIT_STD)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    llm = DeepseekV2Rescorer(cfg, word_hash_encode(cfg.vocab_size), params=params,
+                             device="cuda", max_len=256, compute_dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dsv2_") as tmp:
+        files = write_world(tmp, lexicon, lm, lm)
+        service = DecoderService(lexicon, lm, DecodeConfig(**DSV2_DECODE), llm=llm,
+                                 channel_order="model", searcher_backend="native",
+                                 arpa_path=files["arpa"], lexicon_path=files["lexicon"])
+
+    def finalize(lp):
+        service.reset()
+        for c in range(0, lp.shape[0], DSV2_CHUNK):
+            service.decode_chunk(lp[c: c + DSV2_CHUNK])
+        return service.finalize()
+
+    for lp in logits:     # the rescorer's first calls: each packed shape's graph captured
+        finalize(lp)
+    forwards = mock.patch.object(llm, "_packed", wraps=llm._packed)
+    torch.cuda.synchronize()
+    moe_experts.launches = 0
+    t0 = time.perf_counter()
+    with forwards as packed:
+        finals = [finalize(lp) for lp in logits]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, n_forwards = moe_experts.launches, packed.call_count
+    n_moe = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    llm_cols = [r[3] for o in finals for r in o.nbest]
+    rows = [len(o.nbest) for o in finals]
+    fig = {"phase": "finalize_dsv2", "requests": len(finals),
+           "llm": "DeepseekV2Config.deepseek_v2_lite(), bf16, random weights "
+                  f"N(0, {DSV2_INIT_STD}^2), word_hash_encode",
+           "weight_bytes": weight_bytes, "init_s": init_s,
+           "memory_peak_bytes": torch.cuda.max_memory_allocated(),
+           "decode": DSV2_DECODE, "chunk_frames": DSV2_CHUNK,
+           "nbest_rows_mean": float(np.mean(rows)),
+           "exact": sum(o.sentence == s for o, (s, _) in zip(finals, requests)),
+           "packed_forwards": n_forwards, "launches": launches, "moe_layers": n_moe,
+           "launches_per_forward": launches / max(n_forwards, 1),
+           "ms_per_utterance": wall * 1e3 / len(finals),
+           "clock": "host, decode_chunk calls and finalize per utterance, ending in a sync",
+           "llm_scores_finite": bool(np.all(np.isfinite(llm_cols))),
+           "llm_scored": bool(any(v != 0.0 for v in llm_cols))}
+    problems = []
+    if n_forwards != sum(1 for n in rows if n):
+        problems.append(f"{n_forwards} packed forwards for {sum(1 for n in rows if n)} "
+                        f"utterances with an n-best")
+    if n_forwards == 0 or launches != 2 * n_moe * n_forwards:
+        problems.append(f"K5 launched {launches} times in {n_forwards} forwards, expected "
+                        f"{2 * n_moe} a forward")
+    if not (fig["llm_scores_finite"] and fig["llm_scored"]):
+        problems.append("the LLM column is not finite or was never filled")
+    fig["ok"] = not problems
+    fig["problems"] = problems
+    emit(fig)
+    del service, llm, params
+    torch.cuda.empty_cache()
     return fig
 
 
@@ -3086,6 +3227,7 @@ def main() -> int:
                                                     train_shape + ("decoder_init",)])
     pre_fig = phase_kernel_fused_preprocess(cfg.dataset.batch_size, BINS,
                                             cfg.model.n_input_features)
+    moe_fig = phase_kernel_moe()
 
     fig, model, feats_list, infer, logits, outs, requests, world = phase_serve(
         cfg, "cuda", torch.bfloat16, N_REQUESTS, BINS, VOCAB, {"gru_fwd": gru_layer_forward})
@@ -3109,6 +3251,9 @@ def main() -> int:
     fig["logits_tol"] = "rtol=atol=2e-2 (bf16)"
     emit(fig)
     problems = check_serve(fig, logits, plain, cfg, main_shape)
+    dsv2_fig = phase_finalize_dsv2(world, logits, requests)
+    if not dsv2_fig["ok"]:
+        problems.append(f"finalize_dsv2: {dsv2_fig['problems']}")
     parity = phase_search_parity(world, logits, requests, outs)
     if not parity["ok"]:
         problems.append(f"search_parity: {parity}")
@@ -3249,6 +3394,14 @@ def main() -> int:
                      "gather profile run: 3 cases, each 1 check + 2 warm-up + 32 timed "
                      "launches; figures of the first case, over its 32 rotated index sets",
                      gather_fig["main"], ("rows", "rw", "g", "in_flight")),
+        kernel_entry("moe_experts", "cuda", "b2txt_tpu_torch/csrc/moe_grouped.cu",
+                     "none (port-only: the JAX package has no expert layer)",
+                     dsv2_fig["launches"],
+                     f"finalize_dsv2 run: {dsv2_fig['requests']} finalizes, "
+                     f"{dsv2_fig['packed_forwards']} packed forwards of DeepSeek-V2-Lite, "
+                     f"{dsv2_fig['launches_per_forward']:g} a forward ({dsv2_fig['moe_layers']} "
+                     f"MoE layers); figures of the kernel_moe phase", moe_fig,
+                     ("T", "E", "k", "D", "Fm")),
     ]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

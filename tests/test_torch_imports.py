@@ -65,6 +65,8 @@ def test_every_module_imports_without_jax():
                 "b2txt_tpu_torch.scripts.evaluate_model",
                 "b2txt_tpu_torch.scripts.language_model_standalone",
                 "b2txt_tpu_torch.decode.opt_lm", "b2txt_tpu_torch.decode.device_lm",
+                "b2txt_tpu_torch.decode.packed_scorer", "b2txt_tpu_torch.decode.deepseek_lm",
+                "b2txt_tpu_torch.ops.moe",
                 "b2txt_tpu_torch.decode.prefix_beam", "b2txt_tpu_torch.decode.prefix_beam_device",
                 "b2txt_tpu_torch.lm.corpus", "b2txt_tpu_torch.utils.bpe",
                 "b2txt_tpu_torch.utils.profiling", "b2txt_tpu_torch.data.adversarial",
@@ -121,6 +123,10 @@ def test_entry_points_want_the_card(monkeypatch):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         OPTRescorer(OPTConfig.tiny())
+    from b2txt_tpu_torch.decode.deepseek_lm import DeepseekV2Config, DeepseekV2Rescorer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeepseekV2Rescorer(DeepseekV2Config.tiny(), lambda t, n: [2])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceCausalLMRescorer()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -214,16 +214,17 @@ def test_fused_preprocess_card_equals_cpu_for_one_seed():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("source", ["preprocess.cu", "row_gather.cu"])
+@pytest.mark.parametrize("source", ["preprocess.cu", "row_gather.cu", "moe_grouped.cu"])
 def test_kernel_builds_without_spills(source):
-    """ptxas reports 0 spill bytes for every kernel of K3 and K4."""
+    """ptxas reports 0 spill bytes for every kernel of K3, K4 and K5."""
     import re
 
     from b2txt_tpu_torch.ops import _build
 
     _need_card()
     report = {"preprocess.cu": _build.preprocess_library,
-              "row_gather.cu": _build.row_gather_library}[source]().ptxas_report
+              "row_gather.cu": _build.row_gather_library,
+              "moe_grouped.cu": _build.moe_grouped_library}[source]().ptxas_report
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
     assert spills and not any(spills), report
 
@@ -447,3 +448,137 @@ def test_device_search_graph_replay_equals_eager_loop(sum_mode):
                                     tuple(r.cpu().numpy() for r in recs), None)
                  for st, recs in ((st_g, recs_g), (st_e, recs_e))]
         assert nbest[0] == nbest[1] and any(nbest[0])
+
+
+def _routing(T, E, k, kind, gen):
+    """(weights (T, k), experts (T, k), counts (E + 1,)) of a routing kind:
+    the router's softmax top-k on random logits ("uniform"); three experts
+    favoured by most tokens ("skewed"); expert E // 2 every token's first
+    choice ("one_expert"); a third of the tokens padding ("padding")."""
+    logits = torch.randn(T, E, device="cuda", generator=gen)
+    if kind == "skewed":
+        logits[:, :3] += 2.5
+    if kind == "one_expert":
+        logits[:, E // 2] += 100.0
+    w, idx = torch.topk(logits.softmax(-1), k, dim=-1)
+    if kind == "padding":
+        idx[T - T // 3:] = E
+    counts = torch.zeros(E + 1, dtype=torch.int64, device="cuda")
+    counts.scatter_add_(0, idx.reshape(-1), torch.ones_like(idx.reshape(-1)))
+    return w, idx, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["uniform", "skewed", "one_expert", "padding"])
+@pytest.mark.parametrize("T,E,k,D,Fm", [
+    (64, 64, 6, 2048, 1408),   # the rescorer's packed forward: DeepSeek-V2-Lite's widths
+    (128, 64, 6, 2048, 1408),
+    (37, 8, 3, 64, 32),        # ragged: rows and widths that are no multiple of the tiles
+    (5, 4, 2, 80, 40),
+])
+def test_moe_grouped_kernel_matches_plain(T, E, k, D, Fm, kind):
+    """K5 against ``moe_experts_plain`` (every expert over every token,
+    weighted densely): bf16 products with float32 sums on both sides, so
+    they differ by bf16 roundings of the hidden product, well inside 2% of
+    the output's largest entry; no host sync inside the call; two calls
+    give the same bits."""
+    _need_card()
+    from b2txt_tpu_torch.ops import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(T * 1000 + E)
+    x = torch.randn(T, D, device="cuda", generator=gen).bfloat16()
+    gate_up = (torch.randn(E, 2 * Fm, D, device="cuda", generator=gen) * D ** -0.5).bfloat16()
+    down = (torch.randn(E, D, Fm, device="cuda", generator=gen) * Fm ** -0.5).bfloat16()
+    w, idx, counts = _routing(T, E, k, kind, gen)
+    before = moe.moe_experts.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe.moe_experts(x, idx, w, gate_up, down, counts)
+        again = moe.moe_experts(x, idx, w, gate_up, down, counts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = moe.moe_experts_plain(x, idx, w, gate_up, down)
+    assert moe.moe_experts.launches - before == 4
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item(), err
+    if kind == "padding":
+        assert (got[T - T // 3:] == 0).all()
+
+
+@pytest.mark.gpu
+def test_deepseek_forward_on_card_matches_the_cpu():
+    """The tiny DeepSeek-V2 in float32 on the card (K5 for its experts)
+    against the CPU's plain path, and no host sync in its packed forward."""
+    _need_card()
+    from b2txt_tpu_torch.decode import deepseek_lm as D
+
+    cfg = D.DeepseekV2Config.tiny()
+    sd = D.init_params(cfg, "cpu", torch.float32, torch.Generator().manual_seed(0), std=0.1)
+    g = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (3, 70), generator=g)
+    seg = torch.repeat_interleave(torch.arange(1, 8), 10)[None].repeat(3, 1)
+    seg[2, 40:] = 0
+    pos = (torch.arange(70) % 10)[None].repeat(3, 1)
+    mask = (seg > 0).float()
+    cpu = D.DeepseekV2Model.from_state_dict(cfg, sd, "cpu")(tok, mask, positions=pos,
+                                                            segment_ids=seg)
+    model = D.DeepseekV2Model.from_state_dict(cfg, sd, "cuda")
+    args = [t.cuda() for t in (tok, mask, pos, seg)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = model(args[0], args[1], positions=args[2], segment_ids=args[3])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    real = mask.bool()
+    np.testing.assert_allclose(got.cpu()[real].numpy(), cpu[real].numpy(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_deepseek_rescorer_graph_replay_equals_the_eager_forward():
+    """The rescorer's captured forward against the same forward run op by op
+    at the same padded shape (bf16, K5 on the tensor cores): two dispatches
+    of one shape before either fetch keep their own scores, one capture
+    serves both, no host sync after it, and K5 counts 2 launches a MoE layer
+    a replay."""
+    _need_card()
+    from b2txt_tpu_torch.decode import deepseek_lm as D
+    from b2txt_tpu_torch.decode.packed_scorer import word_hash_encode
+    from b2txt_tpu_torch.ops.moe import moe_experts
+    from b2txt_tpu_torch.utils import profiling
+    from b2txt_tpu_torch.utils.device import upload
+
+    cfg = D.DeepseekV2Config.tiny()
+    sd = D.init_params(cfg, "cuda", torch.bfloat16,
+                       torch.Generator(device="cuda").manual_seed(3), std=0.1)
+    enc = word_hash_encode(cfg.vocab_size)
+    resc = D.DeepseekV2Rescorer(cfg, enc, params=sd, device="cuda",
+                                compute_dtype=torch.bfloat16)
+    a = ["the cat sat on the mat", "a dog", "we will see it tomorrow", "hello there"]
+    b = ["an apple a day", "the quick brown fox", "jumps over the lazy dog", "hi"]
+
+    def eager(texts):
+        tokens, seg, pos, n = resc._pack_arrays([enc(t, 256) for t in texts])
+        with torch.inference_mode():
+            sums, cnt, _ = resc._forward(n, *(upload(x, resc.device) for x in (tokens, seg, pos)))
+        return (sums[1: 1 + len(texts)]).cpu().numpy()
+
+    want_a, want_b = eager(a), eager(b)
+    with profiling.tracing():
+        first = resc.score(a)                        # captures this shape
+        torch.cuda.synchronize()
+        before = moe_experts.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fetch_a, fetch_b = resc.score_async(a), resc.score_async(b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got_a, got_b = fetch_a(), fetch_b()
+        captures = profiling.counters()["dsv2.graph_captures"]
+    assert captures == 1 and len(resc._graphs) == 1
+    n_moe = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    assert moe_experts.launches - before == 2 * 2 * n_moe
+    for got, want in ((first, want_a), (got_a, want_a), (got_b, want_b)):
+        np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)

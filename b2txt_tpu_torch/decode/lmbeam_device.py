@@ -6,7 +6,8 @@ expands a fixed-width beam of hypotheses for a whole batch of utterances at
 once:
 
     stay / repeat         (K)        blank or absorbed-repeat emissions
-    extend-phone          (K×FB)     trie transitions (L.fst arcs)
+    extend-phone          (K×V)      trie transitions (L.fst arcs), the
+                                     frame's first beam of phones
     silence-at-root       (K)        optional-silence arcs
     close-word            (K×H)      SIL at word-final trie nodes; one
                                      candidate per homophone with its n-gram
@@ -23,20 +24,34 @@ What differs from the JAX module, and why:
   over frames issues device work without syncing with the host, so
   ``decode_batches`` overlaps batch j+1's frames with batch j's host
   extraction as JAX's asynchronous dispatch does. On the card, with a
-  ``DeviceNGram``, a batch's frames are replays of one CUDA graph of the
-  frame step (``_FrameGraph``): one launch call a frame where issuing the
-  step op by op takes ~600. Elsewhere (the CPU, the sharded search, the
-  streaming ``decode``) they are a Python loop over ``_expand``.
+  ``DeviceNGram``, the frame step is one hand-written kernel, K6
+  (``ops/beam_step.py``), where ``_expand`` op by op is ~600; a batch's
+  frames are replays of one CUDA graph of it (``_FrameGraph``), and the
+  streaming ``decode`` launches it a frame. Elsewhere (the CPU, the sharded
+  search) the frames are a Python loop over ``_expand``, the kernel's plain
+  version.
 - The three-key ``lax.sort`` is two stable sorts: on the Viterbi rank, then
   on one int64 key ordering (k1, k2) as unsigned 32-bit pairs. Each
   segment's last element is therefore its best path, the representative
   whose payload survives (the ngram-keying invariant).
 - The segmented ``associative_scan`` is a per-segment reduction:
-  ``scatter_reduce(amax)`` (exact) for Viterbi and the acoustic columns, a
-  max-shifted log-sum-exp in ``sum_mode`` (it rounds differently from the
-  pairwise scan; the n-best scores stay within 1e-4 of the JAX package's).
-- Ties: ``torch.topk`` and the JAX top-k order equal scores differently, so
-  beams whose score is the NEG floor carry other payloads; they never
+  ``scatter_reduce(amax)`` (exact) for the Viterbi ranking columns and the
+  acoustic ones, a max-shifted log-sum-exp for the ranking columns in
+  ``sum_mode`` (it rounds differently from the pairwise scan; the n-best
+  scores stay within 1e-4 of the JAX package's). In Viterbi each acoustic
+  column takes its ranking column's best path's, as the host searchers
+  merge; the JAX package takes the acoustic column's own max, so a merged
+  beam there can report more acoustic score than any one of its paths.
+- The first beam extends by every phone at or above the frame's
+  ``first_beam``-th best log-prob, ties included, as the host searchers
+  threshold it (the JAX package takes exactly ``first_beam`` by top-k; bf16
+  posteriors tie often). ``_expand`` lays out all V phones, those outside
+  the beam at NEG: its shapes need no host read of the beam's size.
+- Each frame drops the beams more than ``beam`` below the row's best, as
+  the host searchers do (the JAX package keeps all K).
+- Ties: ``torch.topk``, K6 and the JAX top-k order equal scores
+  differently, so beams whose score is the NEG floor carry other payloads,
+  and beams of equal totals may take other slots; they never
   outrank a real hypothesis.
 - No time bucketing: shapes need not be static, so a batch runs exactly its
   longest utterance's frames.
@@ -62,6 +77,7 @@ import torch
 from ..lm.device_ngram import DeviceNGram, hash_ctx, hash_extend
 from ..lm.lexicon import Lexicon
 from ..lm.ngram import NGramLM
+from ..ops.beam_step import beam_step, workspace
 from ..ops.segment import sorted_segment_sum
 from ..utils.config import DecodeConfig
 from ..utils.device import resolve_device
@@ -93,26 +109,33 @@ def _key64(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
 def _seg_merge4(sc: torch.Tensor, starts: torch.Tensor, sum_mode: bool):
     """The segmented merge of the candidates' four score columns (s, ns,
     ac_s, ac_ns), ``sc`` (B*N, 4) in sorted order, whose segments begin
-    where ``starts`` (B, N) is True: max for Viterbi and the acoustic
-    columns, log-sum-exp of the ranking columns in ``sum_mode``. Returns
-    (merged (B*N, 4) by segment, the ranking total of each segment (B*N,),
-    each candidate's segment (B*N,))."""
+    where ``starts`` (B, N) is True. In ``sum_mode`` the ranking columns
+    merge by log-sum-exp and the acoustic ones by max. In Viterbi each
+    ranking column keeps its best path, and each acoustic column that
+    path's acoustic score (the host searcher's per-component merge; among
+    paths of equal score, the highest acoustic). Returns (merged (B*N, 4)
+    by segment, the ranking total of each segment (B*N,), each candidate's
+    segment (B*N,))."""
     B, N = starts.shape
     dev = sc.device
     seg = (starts.cumsum(1) - 1
            + torch.arange(B, device=dev)[:, None] * N).reshape(-1)   # (B*N,)
+    if not sum_mode:
+        seg2 = seg[:, None].expand(-1, 2)
+        best = torch.full((B * N, 2), -math.inf, dtype=torch.float32, device=dev)
+        best.scatter_reduce_(0, seg2, sc[:, :2], "amax")
+        # an acoustic score counts only where its path holds the column's max
+        ac = torch.where(sc[:, :2] == best[seg], sc[:, 2:], -math.inf)
+        best_ac = torch.full((B * N, 2), -math.inf, dtype=torch.float32, device=dev)
+        best_ac.scatter_reduce_(0, seg2, ac, "amax")
+        return torch.cat([best, best_ac], 1), torch.maximum(best[:, 0], best[:, 1]), seg
     merged = torch.full((B * N, 4), -math.inf, dtype=torch.float32, device=dev)
     merged.scatter_reduce_(0, seg[:, None].expand(-1, 4), sc, "amax")
-    if sum_mode:
-        m = merged[:, :2]
-        m_safe = m.clamp(min=NEG)
-        tot = sorted_segment_sum(torch.exp(sc[:, :2] - m_safe[seg]), seg, B * N)
-        lse = (m_safe + torch.log(tot)).masked_fill(m <= NEG, NEG)
-        merged = torch.cat([lse, merged[:, 2:]], 1)
-        combined = _logaddexp(merged[:, 0], merged[:, 1])
-    else:
-        combined = torch.maximum(merged[:, 0], merged[:, 1])
-    return merged, combined, seg
+    m = merged[:, :2]
+    m_safe = m.clamp(min=NEG)
+    tot = sorted_segment_sum(torch.exp(sc[:, :2] - m_safe[seg]), seg, B * N)
+    lse = (m_safe + torch.log(tot)).masked_fill(m <= NEG, NEG)
+    return torch.cat([lse, merged[:, 2:]], 1), _logaddexp(lse[:, 0], lse[:, 1]), seg
 
 
 class LmBeamState(NamedTuple):
@@ -286,6 +309,23 @@ def _backtrace_all(parents: np.ndarray, words: np.ndarray) -> np.ndarray:
     return out
 
 
+def live_beams(state: "LmBeamState", recs) -> List[dict]:
+    """Per row of a search's final ``state`` and records ``recs`` (parents,
+    words; (T, B, K)), its live beams (max(s, ns) > NEG/2) by identity (h1,
+    h2, node, last): context, scores and lm as bits, and the words each
+    emitted. K6 and ``torch.topk`` may order beams of equal totals
+    differently, so two searches are compared by this set, not slot by
+    slot."""
+    traces = _backtrace_all(recs[0].cpu().numpy().astype(np.int64), recs[1].cpu().numpy())
+    st = [x.cpu() for x in state]
+    bits = [x.view(torch.int32) if x.dtype == torch.float32 else x for x in st]
+    live = (torch.maximum(st[5], st[6]) > NEG / 2).numpy()
+    return [{tuple(int(bits[i][b, k]) for i in range(4)):
+             (tuple(bits[4][b, k].tolist()), tuple(int(bits[i][b, k]) for i in range(5, 10)),
+              tuple(w for w in traces[:, b, k].tolist() if w >= 0))
+             for k in np.nonzero(live[b])[0]} for b in range(live.shape[0])]
+
+
 class _BatchHandle(NamedTuple):
     """A dispatched batch: its finalize outputs and backpointers, being
     copied to host memory behind ``event`` (None on the CPU)."""
@@ -321,7 +361,10 @@ class _FrameGraph:
         self.parents = torch.zeros((T_cap, B, K), dtype=torch.int16, device=device)
         self.words = torch.zeros((T_cap, B, K), dtype=torch.int32, device=device)
         self.keep_k = torch.arange(K, dtype=torch.int32, device=device).expand(B, K)
+        self.ticket = torch.zeros((1,), dtype=torch.int32, device=device)   # K6's rows done
+        self.work = workspace(B, K, V, searcher.H, searcher.dev_lm.order, device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches = 0   # K6's launches in one captured step
 
     def load(self, state: LmBeamState, lp: torch.Tensor, lens: torch.Tensor,
              n_frames: int) -> None:
@@ -515,13 +558,16 @@ class DeviceLexiconBeamSearch:
     # ------------------------------------------------------------ expansion
     def _expand(self, st: LmBeamState, lp: torch.Tensor, scale: float,
                 length_penalty: float, first_beam: Optional[int] = None,
-                sum_mode: bool = True):
-        """One frame of expansion for a batch: state (B, K), lp (B, V).
-        ``first_beam`` restricts the phone-extension candidates to the top-k
-        log-prob phones of the frame (the reference's first-beam prune);
+                sum_mode: bool = True, beam: float = 0.0):
+        """One frame of expansion for a batch: state (B, K), lp (B, V); the
+        plain version of K6 (``ops/beam_step.py``). ``first_beam`` restricts
+        the phone-extension candidates to the frame's first beam of phones
+        (the reference's first-beam prune);
         ``sum_mode`` selects the CTC-proper log-sum path merge (True) or
-        Kaldi-style Viterbi max (False). Returns (new state, parents, syms,
-        words), the last three (B, K)."""
+        Kaldi-style Viterbi max (False); ``beam`` > 0 drops the beams more
+        than ``beam`` below the row's best (to NEG), the host searchers'
+        window. Returns (new state, parents, syms, words), the last three
+        (B, K)."""
         B, K = st.s.shape
         V = lp.shape[-1]
         H = self.H
@@ -568,29 +614,26 @@ class DeviceLexiconBeamSearch:
         la_node = nrow[..., 2 * H].view(torch.float32)
 
         # ---- 2. extend with phone c (non-blank, non-SIL)
+        c = torch.arange(V, **i32).expand(B, K, V)
+        lp_ext = lp[:, None, :].expand(B, K, V)
+        pair = self.trie.next_la2[st.node]                            # (B, K, V, 2)
+        phone_ok = (c != blank) & (c != sil) & torch.isfinite(lp_ext)
         if first_beam is not None and first_beam < V - 2:
-            # this frame's top phones (blank/SIL are handled by the stay,
-            # silence and close branches); a stable descending sort keeps the
-            # lower phone first among equal log-probs, as the JAX top-k does
+            # the first beam: the phones (blank and SIL aside: the stay,
+            # silence and close branches take them) at or above this frame's
+            # first_beam-th best log-prob, ties included, as the host
+            # searchers threshold it
             masked = lp.clone()
             masked[:, blank] = -math.inf
             masked[:, sil] = -math.inf
-            lp_fb, c_fb = torch.sort(masked, dim=1, descending=True, stable=True)
-            FB = first_beam
-            c = c_fb[:, None, :FB].to(torch.int32).expand(B, K, FB)
-            lp_ext = lp_fb[:, None, :FB].expand(B, K, FB)
-            pair = self.trie.next_la2[st.node[..., None], c]          # (B, K, FB, 2)
-        else:
-            FB = V
-            c = torch.arange(V, **i32).expand(B, K, V)
-            lp_ext = lp[:, None, :].expand(B, K, V)
-            pair = self.trie.next_la2[st.node]                        # (B, K, V, 2)
+            kth = torch.topk(masked, first_beam, dim=1).values[:, -1:]
+            phone_ok = phone_ok & (masked >= kth)[:, None, :]
         child = pair[..., 0]
         la_child = pair[..., 1].view(torch.float32)
         is_rep = c == st.last[..., None]
         base = torch.where(is_rep, st.s[..., None], score[..., None])
         ac_base = torch.where(is_rep, st.ac_s[..., None], ac[..., None])
-        phone_ok = (c != blank) & (c != sil) & (child >= 0) & torch.isfinite(lp_ext)
+        phone_ok = phone_ok & (child >= 0)
         child0 = child.clamp(min=0)
         ek1, ek2 = sort_keys(st.h1[..., None], st.h2[..., None], child0, c)
         la_delta = la_child - la_node[..., None]
@@ -650,7 +693,7 @@ class DeviceLexiconBeamSearch:
         # for the K winners. Merged duplicates share identical (h1, h2, node,
         # last, ctx, lm) under history keying.
         keys, scores, payloads = [], [], []
-        for part, shape in ((stay, (B, K)), (ext, (B, K, FB)), (silroot, (B, K)),
+        for part, shape in ((stay, (B, K)), (ext, (B, K, V)), (silroot, (B, K)),
                             (close, (B, K, H))):
 
             def full(x, dtype):
@@ -693,6 +736,8 @@ class DeviceLexiconBeamSearch:
 
         top_total, top_idx = torch.topk(total, K, dim=1)
         valid = top_total > -math.inf
+        if beam > 0:
+            valid = valid & (top_total >= top_total[:, :1] - beam)
         m4 = merged[seg.reshape(B, N).gather(1, top_idx)]   # (B, K, 4)
         win = perm.gather(1, top_idx)
         pw = payload.gather(1, win[..., None].expand(B, K, payload.shape[-1]))
@@ -710,7 +755,8 @@ class DeviceLexiconBeamSearch:
     def _step_args(self):
         cfg = self.config
         return dict(scale=float(cfg.acoustic_scale), length_penalty=float(cfg.length_penalty),
-                    first_beam=cfg.first_beam_size or None, sum_mode=bool(cfg.sum_mode))
+                    first_beam=cfg.first_beam_size or None, sum_mode=bool(cfg.sum_mode),
+                    beam=float(cfg.beam))
 
     # ----------------------------------------------------------------- scan
     def _scan_batch(self, state: LmBeamState, lp: torch.Tensor, lengths: np.ndarray,
@@ -738,9 +784,9 @@ class DeviceLexiconBeamSearch:
         return self._scan_eager(state, lp, lengths, lens, n_frames)
 
     def _replays(self, lp: torch.Tensor) -> bool:
-        """Whether ``lp``'s frames replay a captured frame step: on the card,
-        with a plain ``DeviceNGram`` (a subclass may probe through
-        collectives or the host)."""
+        """Whether ``lp``'s frames are K6's launches, a batch's replaying
+        its captured step: on the card, with a plain ``DeviceNGram`` (a
+        subclass may probe through collectives or the host)."""
         return lp.device.type == "cuda" and type(self.dev_lm) is DeviceNGram
 
     def _scan_eager(self, state: LmBeamState, lp: torch.Tensor, lengths: np.ndarray,
@@ -767,9 +813,25 @@ class DeviceLexiconBeamSearch:
             words.append(wd)
         return state, (torch.stack(parents), torch.stack(words))
 
+    def _kernel_step(self, state: LmBeamState, lp: torch.Tensor, lens, t, ticket, parents,
+                     words, work, t_offset: int = 0, advance: bool = True) -> None:
+        """One frame by K6, in place over ``state``: ``_expand`` with this
+        searcher's trie, LM and options (``ops.beam_step.beam_step``);
+        ``work`` is ``ops.beam_step.workspace``'s for the shape."""
+        beam_step(state, lp, lens, t, ticket, parents, words, self.trie, self.dev_lm,
+                  **self._step_args(), close_top=self.close_top,
+                  ngram_key=self.state_key == "ngram", blank=self.blank, sil=self.sil,
+                  la0=self.la0, t_offset=t_offset, advance=advance, work=work)
+
     def _frame_step(self, fg: _FrameGraph) -> None:
         """One frame of ``fg``'s batch, in place: the static form of
-        ``_scan_eager``'s loop body, masked on every frame."""
+        ``_scan_eager``'s loop body, masked on every frame. On the card with
+        a plain ``DeviceNGram`` it is K6's one launch, which also advances
+        ``t``."""
+        if self._replays(fg.lp):
+            self._kernel_step(fg.state, fg.lp, fg.lens, fg.t, fg.ticket, fg.parents, fg.words,
+                              fg.work)
+            return
         lp = fg.lp.index_select(1, fg.t)[:, 0]
         new, par, _, wd = self._expand(fg.state, lp, **fg.args)
         active = fg.lens > fg.t
@@ -811,11 +873,14 @@ class DeviceLexiconBeamSearch:
                 self._frame_step(fg)
         torch.cuda.current_stream(device).wait_stream(side)
         fg.graph = torch.cuda.CUDAGraph()
+        before = beam_step.launches
         # only this thread's calls are checked during the capture: another
         # thread of the program may be using the card at the time (the
         # training loader's prefetch thread uploads from one)
         with torch.cuda.graph(fg.graph, capture_error_mode="thread_local"):
             self._frame_step(fg)
+        # the capture ran nothing: its launches count at each replay
+        fg.launches, beam_step.launches = beam_step.launches - before, before
         count("search.graph_captures")
 
     def _scan_graph(self, state: LmBeamState, lp: torch.Tensor, lens: torch.Tensor,
@@ -828,6 +893,7 @@ class DeviceLexiconBeamSearch:
             fg.load(state, lp, lens, n_frames)
             for _ in range(n_frames):
                 fg.graph.replay()
+            beam_step.launches += fg.launches * n_frames
             count("search.graph_frames", n_frames)
             return fg.result(n_frames)
 
@@ -1083,25 +1149,52 @@ class DeviceLexiconBeamSearch:
             blank_row[0, self.blank] = 0.0
             K = self.state.s.shape[1]
             keep_k = torch.arange(K, dtype=torch.int32, device=self.device)[None]
-            args = self._step_args()
-            state = self.state
-            parents, words = [], []
-            for t in range(T):
-                if skip[t]:
-                    parents.append(keep_k)
-                    words.append(torch.full_like(keep_k, -1))
-                    continue
-                if reinsert[t]:
-                    state = self._expand(state, blank_row, **args)[0]
-                state, par, _, wd = self._expand(state, lp[t : t + 1], **args)
-                parents.append(par)
-                words.append(wd)
-            self.state = state
-            if T:
-                self.records.append((torch.cat(parents).cpu().numpy(),
-                                     torch.cat(words).cpu().numpy()))
+            if self._replays(lp):
+                self._decode_kernel(lp, blank_row, skip, reinsert, keep_k)
+            else:
+                args = self._step_args()
+                state = self.state
+                parents, words = [], []
+                for t in range(T):
+                    if skip[t]:
+                        parents.append(keep_k)
+                        words.append(torch.full_like(keep_k, -1))
+                        continue
+                    if reinsert[t]:
+                        state = self._expand(state, blank_row, **args)[0]
+                    state, par, _, wd = self._expand(state, lp[t : t + 1], **args)
+                    parents.append(par)
+                    words.append(wd)
+                self.state = state
+                if T:
+                    self.records.append((torch.cat(parents).cpu().numpy(),
+                                         torch.cat(words).cpu().numpy()))
         self.n_frames += T
         self._final_cache = None
+
+    def _decode_kernel(self, lp: torch.Tensor, blank_row: torch.Tensor, skip: np.ndarray,
+                       reinsert: np.ndarray, keep_k: torch.Tensor) -> None:
+        """``decode``'s frames by K6, one launch a frame kept (and one for
+        a reinserted blank frame, not recorded), over a copy of the state
+        that then becomes it."""
+        T, V = lp.shape
+        state = LmBeamState(*(x.clone() for x in self.state))
+        parents = keep_k.to(torch.int16).expand(T, 1, -1).clone()
+        words = torch.full(parents.shape, -1, dtype=torch.int32, device=self.device)
+        t0 = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        ticket = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        work = workspace(1, keep_k.shape[1], V, self.H, self.dev_lm.order, self.device)
+        lp, blank_row = lp[None], blank_row[None]
+        for t in np.nonzero(~skip)[0].tolist():
+            if reinsert[t]:
+                self._kernel_step(state, blank_row, None, t0, ticket, None, None, work,
+                                  advance=False)
+            self._kernel_step(state, lp, None, t0, ticket, parents, words, work, t_offset=t,
+                              advance=False)
+        self.state = state
+        if T:
+            self.records.append((parents[:, 0].int().cpu().numpy(),
+                                 words[:, 0].cpu().numpy()))
 
     def decoded_something(self) -> bool:
         return self.n_frames > 0

@@ -119,3 +119,14 @@ def preprocess_library() -> Built:
 def moe_grouped_library() -> Built:
     """K5, ``csrc/moe_grouped.cu``, with its C signature declared."""
     return _declare(build("moe_grouped.cu"), "b2t_moe_experts", 8, 6)
+
+
+@functools.lru_cache(maxsize=None)
+def beam_step_library() -> Built:
+    """K6, ``csrc/beam_step.cu``, with its C signatures declared."""
+    built = _declare(build("beam_step.cu"), "b2t_beam_step", 22, 17, 5)
+    for name in ("b2t_beam_step_smem", "b2t_beam_step_fixed", "b2t_beam_step_work"):
+        fn = getattr(built.lib, name)
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_longlong
+    return built

@@ -322,9 +322,9 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from b2txt_tpu_torch import runtime
-    from b2txt_tpu_torch.ops._build import (gru_bwd_library, gru_fwd_library,
-                                            moe_grouped_library, preprocess_library,
-                                            row_gather_library)
+    from b2txt_tpu_torch.ops._build import (beam_step_library, gru_bwd_library,
+                                            gru_fwd_library, moe_grouped_library,
+                                            preprocess_library, row_gather_library)
 
     def native():
         t0 = time.perf_counter()
@@ -334,7 +334,8 @@ def phase_build():
     t0 = time.perf_counter()
     libs = {"gru_fwd.cu": gru_fwd_library, "gru_bwd.cu": gru_bwd_library,
             "row_gather.cu": row_gather_library, "preprocess.cu": preprocess_library,
-            "moe_grouped.cu": moe_grouped_library, "native": native}
+            "moe_grouped.cu": moe_grouped_library, "beam_step.cu": beam_step_library,
+            "native": native}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(fn) for name, fn in libs.items()}
         built = {name: f.result() for name, f in futures.items()}
@@ -1102,10 +1103,123 @@ def profile_call(run, top: int = 6, settle_s: float = 0.0):
             "top": [{"name": k[:80], "ms": ms, "calls": n} for ms, k, n in rows[:top]]}
 
 
+def beam_step_bytes(searcher, B: int) -> int:
+    """Bytes one frame of K6 must move for B rows: each beam's state read
+    and written, its packed trie row and a [child, lookahead] pair a phone
+    it extends by, its n-gram bucket rows (a gram a level and homophone
+    probed, a context backoff a level above 1), the frame's log-probs and
+    the records written."""
+    K, H, order = searcher.config.beam_width, searcher.H, searcher.order
+    CW = max(order - 1, 1)
+    FB = searcher.config.first_beam_size or 39   # the first beam, ties aside
+    n_probe = H if searcher.close_top is None else min(searcher.close_top, H)
+    row = searcher.dev_lm.table[0].shape[1] * 4
+    probes = (order - 1) * n_probe + max(order - 2, 0)
+    state = 4 * (9 + CW)
+    per_beam = 2 * state + 4 * (2 * H + 1) + 8 * FB + probes * row + 6
+    return B * (K * per_beam + 4 * 41)
+
+
+def phase_kernel_beam_step(searcher, lp, lens):
+    """K6, the device search's frame step, at the session evaluation's
+    search shape (the connected world's 125k-word trigram, B = 32 with
+    padding rows, K = 48, first beam 8, H = 4): a batch's frames replayed
+    from the captured graph of K6 against ``_expand`` op by op on the card
+    (live beams and n-best), K6's time a frame (CUDA events over the
+    batch's replays after a warm-up run, and the profiler's device time a
+    launch) beside its byte bound, in the same call the plain ``_expand``
+    op by op (host clock to a sync) and a captured graph of those ops, and
+    ptxas's registers and spills. Returns the figures."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from b2txt_tpu_torch.decode import lmbeam_device as lb
+    from b2txt_tpu_torch.ops._build import beam_step_library
+    from b2txt_tpu_torch.ops.beam_step import beam_step
+
+    with torch.inference_mode():
+        lp, lens, log_bp = searcher._prep_batch(lp, lens)
+        if log_bp != 0.0:
+            lp[:, :, searcher.blank] -= log_bp
+        B, V, n = lp.shape[0], lp.shape[2], min(lp.shape[1], int(lens.max()))
+        lens_dev = torch.from_numpy(lens.astype(np.int64)).to(lp.device)
+        searcher._scan_batch(searcher._make_state(B), lp, lens)   # captures if new
+        before = beam_step.launches
+        got = searcher._scan_batch(searcher._make_state(B), lp, lens)
+        launches = beam_step.launches - before
+        want = searcher._scan_eager(searcher._make_state(B), lp, lens, lens_dev, n)
+        nbest = [searcher._extract_results(tuple(t.cpu().numpy() for t in searcher._finalize(st)),
+                                           tuple(r.cpu().numpy() for r in recs), None)
+                 for st, recs in (got, want)]
+        fg = searcher._frame_graph(B, V, n, lp.device)
+        ops = lb._FrameGraph(searcher, B, fg.T_cap, V, lp.device)
+        with mock.patch.object(searcher, "_replays", return_value=False):
+            searcher._capture(ops)
+
+        def replays_ms(g, reps: int = 3) -> float:
+            total = 0.0
+            for i in range(reps + 1):     # the first run warms up
+                g.load(searcher._make_state(B), lp, lens_dev, n)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(n):
+                    g.graph.replay()
+                end.record()
+                torch.cuda.synchronize()
+                total += start.elapsed_time(end) if i else 0.0
+            return total / (reps * n)
+
+        graph_ms = replays_ms(fg)
+        ops_graph_ms = replays_ms(ops)
+        graph_ms_again = replays_ms(fg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        searcher._scan_eager(searcher._make_state(B), lp, lens, lens_dev, n)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3 / n
+        fg.load(searcher._make_state(B), lp, lens_dev, n)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fg.graph.replay()
+            torch.cuda.synchronize()
+        k6 = [e for e in prof.key_averages() if "beam_step_kernel" in e.key]
+        kernel_us = (sum(e.device_time_total for e in k6) / sum(e.count for e in k6)
+                     if k6 else None)
+    report = beam_step_library().ptxas_report
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
+    bound_us = beam_step_bytes(searcher, B) / HBM_BYTES_PER_S * 1e6
+    ms = 0.5 * (graph_ms + graph_ms_again)
+    fig = {"phase": "kernel_beam_step", "B": B, "K": searcher.config.beam_width,
+           "first_beam": searcher.config.first_beam_size, "H": searcher.H,
+           "order": searcher.order, "frames": n, "padding_rows": int((lens == 0).sum()),
+           "live_beams_equal": lb.live_beams(*got) == lb.live_beams(*want),
+           "nbest_equal": nbest[0] == nbest[1], "nbest_rows": sum(len(r) for r in nbest[0]),
+           "launches": launches, "launches_per_frame": launches / n,
+           "ms": ms, "ms_runs": [graph_ms, graph_ms_again],
+           "ms_is": "a frame: CUDA events over the batch's graph replays, mean of 3 runs",
+           "kernel_us": kernel_us, "kernel_us_is": "the profiler's device time a launch",
+           "ops_graph_ms": ops_graph_ms, "plain_ms": plain_ms,
+           "plain_ms_is": "_expand op by op, host clock to a sync, a frame",
+           "bound_ms": bound_us / 1e3, "bound_by": "bytes",
+           "share_of_bound": bound_us / 1e3 / ms, "registers": regs, "spill_bytes": spills,
+           "max_abs_err": 0.0, "library_ms": None}
+    fig["ok"] = (fig["live_beams_equal"] and fig["nbest_equal"] and fig["nbest_rows"] > 0
+                 and launches == n and spills and not any(spills))
+    emit(fig)
+    if not fig["ok"]:
+        raise RuntimeError(f"kernel_beam_step: {fig}")
+    return fig
+
+
 def search_graph_against_eager(searcher, lp, lens):
     """One batch of the device search with its frames replayed from the
-    captured CUDA graph and issued op by op (``_scan_eager``): final state,
-    records and n-best (with the on-card rescore) bit for bit, every frame
+    captured CUDA graph of K6 and issued op by op (``_scan_eager``): the
+    final live beams as a set (``live_beams``) and the n-best (with the
+    on-card rescore) bit for bit, every frame
     replayed; each path's ms a frame (host clock to a sync, the mean of two
     runs in turns graph, eager, eager, graph, after one of each; and to the
     return, the host's issue) and launch
@@ -1115,6 +1229,7 @@ def search_graph_against_eager(searcher, lp, lens):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from b2txt_tpu_torch.decode import lmbeam_device as lb
     from b2txt_tpu_torch.utils.profiling import counters, tracing
 
     with torch.inference_mode():
@@ -1166,13 +1281,10 @@ def search_graph_against_eager(searcher, lp, lens):
                 fn()
                 torch.cuda.synchronize()
             launches[name] = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_EVENTS)
-    st_g, recs_g = out["graph"]
-    st_e, recs_e = out["eager"]
-    state_equal = all(torch.equal(a, b) for a, b in zip(st_g, st_e))
-    records_equal = all(torch.equal(a, b) for a, b in zip(recs_g, recs_e))
+    live_equal = lb.live_beams(*out["graph"]) == lb.live_beams(*out["eager"])
     fig = {"B": B, "K": searcher.config.beam_width, "first_beam": searcher.config.first_beam_size,
            "frames": n, "padding_rows": int((lens == 0).sum()),
-           "state_equal": state_equal, "records_equal": records_equal,
+           "live_beams_equal": live_equal,
            "nbest_equal": nbest["graph"] == nbest["eager"],
            "nbest_rows": sum(len(r) for r in nbest["graph"]),
            "counters": c, "capture_reserved_bytes": capture_bytes,
@@ -1181,7 +1293,7 @@ def search_graph_against_eager(searcher, lp, lens):
            "issue_ms_per_frame_behind_sleep": behind_sleep,
            "launch_calls_per_frame": {k: v / n for k, v in launches.items()},
            "clock": "host, to a sync"}
-    fig["ok"] = (state_equal and records_equal and fig["nbest_equal"] and fig["nbest_rows"] > 0
+    fig["ok"] = (live_equal and fig["nbest_equal"] and fig["nbest_rows"] > 0
                  and c.get("search.graph_frames") == c.get("search.frames") == n)
     return fig
 
@@ -1291,6 +1403,7 @@ def phase_serve_connected(cfg, device: str, counters):
     from b2txt_tpu_torch.models.planted import features_on_device, planted_params
     from b2txt_tpu_torch.serve import DecoderService
     from b2txt_tpu_torch.utils.config import DecodeConfig
+    from b2txt_tpu_torch.utils.profiling import counters as traced, tracing
 
     t0 = time.perf_counter()
     lexicon, lm_unpruned, wl, rng, corpus = build_world(CONNECTED_VOCAB, SEED)
@@ -1332,8 +1445,11 @@ def phase_serve_connected(cfg, device: str, counters):
 
     pipeline(feats_list[:CONNECTED_BATCH])   # warm-up: one batch
     zero(counters)
-    outs, order, batches, sizes, stage1_s, decode_s = pipeline(feats_list)
+    with tracing():   # the search's frames and captures, beside K6's launches
+        outs, order, batches, sizes, stage1_s, decode_s = pipeline(feats_list)
     launches = counted_launches(counters)
+    searched = {"frames": traced().get("search.frames", 0),
+                "graph_captures": traced().get("search.graph_captures", 0)}
     n_batches = len(batches)
 
     hyp = [None] * len(requests)
@@ -1387,6 +1503,7 @@ def phase_serve_connected(cfg, device: str, counters):
     lens32[-5:] = 0
     lens32[:8] -= np.arange(8, dtype=lens32.dtype)
     graph_fig = search_graph_against_eager(searcher, lp[:EVAL_SEARCH_BATCH], lens32)
+    k6_fig = phase_kernel_beam_step(searcher, lp[:EVAL_SEARCH_BATCH], lens32)
     fig = {"phase": "serve_connected", "vocab": CONNECTED_VOCAB, "order": 3,
            "prune_threshold": PRUNE_THRESHOLD, "decode": CONNECTED_DECODE,
            "max_homophones": 4, "H": searcher.H, "state_key": "history",
@@ -1401,8 +1518,9 @@ def phase_serve_connected(cfg, device: str, counters):
            "stage1_ms_per_batch": stage1_s * 1e3 / n_batches,
            "decode_ms_per_batch": decode_s * 1e3 / n_batches,
            "one_batch_split": split, "decode_profile": profile, "graph_vs_eager": graph_fig,
+           "kernel_beam_step": k6_fig,
            "world_build_s": world_s, "prune_s": prune_s, "table_build_s": table_s,
-           "device_table_bytes": sizes_bytes, "launches": launches}
+           "device_table_bytes": sizes_bytes, "launches": launches, "searched": searched}
     emit(fig)
     world = {"searcher": searcher, "native_service": native_service, "model": model,
              "lexicon": lexicon, "lm": lm, "lm_unpruned": lm_unpruned, "decode": dcfg,
@@ -1956,6 +2074,11 @@ def check_connected(fig, n_layers) -> list:
     if not fig["graph_vs_eager"]["ok"]:
         problems.append(f"serve_connected: the device search's graph replay against its "
                         f"eager loop: {fig['graph_vs_eager']}")
+    # K6: one launch a frame searched, and two warm-up steps a capture
+    frames, captures = fig["searched"]["frames"], fig["searched"]["graph_captures"]
+    if not frames or fig["launches"]["beam_step"] != frames + 2 * captures:
+        problems.append(f"serve_connected: beam_step launched {fig['launches']['beam_step']} "
+                        f"times for {frames} frames searched and {captures} captures")
     return problems
 
 
@@ -3119,10 +3242,14 @@ def phase_drivers(opt_params, counters):
     if e["gru_fwd_launches_per_batch"] != 5 or runs["bench"]["launches"]["gru_fwd"] == 0:
         problems.append(f"bench: K1 {e['gru_fwd_launches_per_batch']} a batch, "
                         f"{runs['bench']['launches']['gru_fwd']} in all")
-    # bench_device_decode: the device search as exact as the native one
+    # bench_device_decode: the device search as exact as the native one, by K6
+    # at K = 128 (as drive_large_lm's, at order 5)
     d = last("bench_device_decode")
     if d["device_exact"] != d["native_exact"]:
         problems.append(f"bench_device_decode: {d['device_exact']} against {d['native_exact']}")
+    for name in ("bench_device_decode", "drive_large_lm"):
+        if runs[name]["launches"].get("beam_step", 1) == 0:
+            problems.append(f"{name}: the device search never launched K6")
     # bench_streaming: the hop inside its 80 ms, K1 launched
     st = last("bench_streaming")
     if not (st["update_latency_ms"]["median"] < 80.0 and st["gru_fwd_launches"] > 0
@@ -3205,6 +3332,7 @@ def main() -> int:
     from b2txt_tpu_torch.decode.opt_lm import OPTConfig, init_params
     from b2txt_tpu_torch.evaluate.harness import _batched_inference
     from b2txt_tpu_torch.models import gru_decoder
+    from b2txt_tpu_torch.ops.beam_step import beam_step
     from b2txt_tpu_torch.ops.gru import gru_layer_backward, gru_layer_forward, gru_layer_reference
     from b2txt_tpu_torch.ops.preprocess import fused_preprocess
     from b2txt_tpu_torch.utils.config import TrainConfig
@@ -3260,7 +3388,8 @@ def main() -> int:
     redis_fig = phase_redis(world, logits, requests)
     if not redis_fig["ok"]:
         problems.append(f"redis: {redis_fig}")
-    conn, conn_world = phase_serve_connected(cfg, "cuda", {"gru_fwd": gru_layer_forward})
+    conn, conn_world = phase_serve_connected(cfg, "cuda", {"gru_fwd": gru_layer_forward,
+                                                           "beam_step": beam_step})
     problems += check_connected(conn, cfg.model.n_layers)
     problems += check_evaluate(phase_evaluate(cfg, conn_world, {"gru_fwd": gru_layer_forward}))
     cli_fig = phase_cli(cfg, conn_world, {"gru_fwd": gru_layer_forward})
@@ -3313,7 +3442,8 @@ def main() -> int:
     if not examples_fig["ok"]:
         problems.append(f"examples: {examples_fig['problems']}")
     drivers_fig = phase_drivers(opt_params, {"gru_fwd": gru_layer_forward,
-                                             "gru_bwd": gru_layer_backward})
+                                             "gru_bwd": gru_layer_backward,
+                                             "beam_step": beam_step})
     if not drivers_fig["ok"]:
         problems.append(f"drivers: {drivers_fig['problems']}")
     del opt_params
@@ -3402,6 +3532,14 @@ def main() -> int:
                      f"{dsv2_fig['launches_per_forward']:g} a forward ({dsv2_fig['moe_layers']} "
                      f"MoE layers); figures of the kernel_moe phase", moe_fig,
                      ("T", "E", "k", "D", "Fm")),
+        kernel_entry("beam_step", "cuda", "b2txt_tpu_torch/csrc/beam_step.cu",
+                     "none (port-only: the JAX package's frame step is XLA)",
+                     conn["launches"]["beam_step"],
+                     f"serve_connected run through DecoderService: "
+                     f"{conn['searched']['frames']:g} frames searched, one launch a frame, and "
+                     f"two warm-up launches for each of {conn['searched']['graph_captures']:g} "
+                     f"captures; figures of the kernel_beam_step phase",
+                     conn["kernel_beam_step"], ("B", "K", "first_beam", "H", "order")),
     ]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -25,6 +25,7 @@ from b2txt_tpu_torch.decode.rescore import rescore_nbest_with_ngram, results_to_
 from b2txt_tpu_torch.lm import Lexicon, NGramLM, train_ngram
 from b2txt_tpu_torch.runtime import NativeLexiconBeamSearch
 from b2txt_tpu_torch.utils.config import DecodeConfig
+from torch_host_merge import host_viterbi_merge  # noqa: F401  (autouse)
 
 VOCAB = 3000
 H = 6

@@ -5,12 +5,14 @@ installed: ``python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.p
 Every test skips where there is no CUDA card.
 """
 
+import functools
 from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
+from b2txt_tpu_torch.decode.lmbeam_device import live_beams
 from b2txt_tpu_torch.models.gru_decoder import GRUDecoder
 from b2txt_tpu_torch.ops import gru as port_gru
 from b2txt_tpu_torch.ops import preprocess as port_pre
@@ -214,9 +216,10 @@ def test_fused_preprocess_card_equals_cpu_for_one_seed():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("source", ["preprocess.cu", "row_gather.cu", "moe_grouped.cu"])
+@pytest.mark.parametrize("source", ["preprocess.cu", "row_gather.cu", "moe_grouped.cu",
+                                    "beam_step.cu"])
 def test_kernel_builds_without_spills(source):
-    """ptxas reports 0 spill bytes for every kernel of K3, K4 and K5."""
+    """ptxas reports 0 spill bytes for every kernel of K3, K4, K5 and K6."""
     import re
 
     from b2txt_tpu_torch.ops import _build
@@ -224,7 +227,8 @@ def test_kernel_builds_without_spills(source):
     _need_card()
     report = {"preprocess.cu": _build.preprocess_library,
               "row_gather.cu": _build.row_gather_library,
-              "moe_grouped.cu": _build.moe_grouped_library}[source]().ptxas_report
+              "moe_grouped.cu": _build.moe_grouped_library,
+              "beam_step.cu": _build.beam_step_library}[source]().ptxas_report
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
     assert spills and not any(spills), report
 
@@ -409,12 +413,14 @@ def test_segment_sums_repeat_and_match_float64():
 @pytest.mark.gpu
 @pytest.mark.parametrize("sum_mode", [False, True])
 def test_device_search_graph_replay_equals_eager_loop(sum_mode):
-    """The device search's frames replayed from one captured CUDA graph
-    against the same frames issued op by op, at the session evaluation's
-    search shape (B = 32 with padding rows, K = 48, first beam 8): final
-    state, backpointers, words and n-best bit for bit, for two batches
-    through one graph; every frame replayed, one capture."""
-    from b2txt_tpu_torch.decode.lmbeam_device import DeviceLexiconBeamSearch, LmBeamState
+    """The device search's frames replayed from one captured CUDA graph of
+    K6 against the same frames issued op by op (``_expand``), at the session
+    evaluation's search shape (B = 32 with padding rows, K = 48, first beam
+    8): the final live beams bit for bit as a set, each with the words it
+    emitted, and the n-best, for two batches through one graph; every frame
+    replayed, one capture, one K6 launch a frame."""
+    from b2txt_tpu_torch.decode.lmbeam_device import DeviceLexiconBeamSearch
+    from b2txt_tpu_torch.ops.beam_step import beam_step
     from b2txt_tpu_torch.utils.config import DecodeConfig
     from b2txt_tpu_torch.utils.profiling import counters, tracing
 
@@ -430,24 +436,239 @@ def test_device_search_graph_replay_equals_eager_loop(sum_mode):
         lengths = np.where(np.arange(32) % 7 == 6, 0,
                            lens[r] - (np.arange(32) + shift) % 5 - 3 * shift).astype(np.int32)
         batches.append((torch.from_numpy(batch[r]).cuda(), lengths))
+    before = beam_step.launches
     with tracing(), torch.inference_mode():
         replayed = [s._scan_batch(s._make_state(32), lp, n) for lp, n in batches]
     c = counters()
     frames = sum(int(n.max()) for _, n in batches)
     assert c["search.frames"] == c["search.graph_frames"] == frames
     assert c["search.graph_captures"] == 1
+    assert beam_step.launches - before == frames + 2   # and the capture's two warm-ups
     for (lp, n), (st_g, recs_g) in zip(batches, replayed):
         with torch.inference_mode():
             n_dev = torch.from_numpy(n.astype(np.int64)).cuda()
             st_e, recs_e = s._scan_eager(s._make_state(32), lp, n, n_dev, int(n.max()))
-        for name, a, b in zip(LmBeamState._fields, st_g, st_e):
-            assert torch.equal(a, b), name
-        assert recs_g[0].dtype == torch.int16 and torch.equal(recs_g[0], recs_e[0])
-        assert torch.equal(recs_g[1], recs_e[1])
+        assert recs_g[0].dtype == torch.int16 and recs_g[0].shape == recs_e[0].shape
+        assert live_beams(st_g, recs_g) == live_beams(st_e, recs_e)
         nbest = [s._extract_results(tuple(t.cpu().numpy() for t in s._finalize(st)),
                                     tuple(r.cpu().numpy() for r in recs), None)
                  for st, recs in ((st_g, recs_g), (st_e, recs_e))]
         assert nbest[0] == nbest[1] and any(nbest[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _search_world(order: int, homophones: int = 5):
+    """The session evaluation's search shape at a small vocabulary: 400
+    words of 2-7 random phones, some prefixes of others, and 12 homophone
+    classes of ``homophones`` (5: the trie keeps 4, H = 4, one dropped); an n-gram of
+    ``order`` over 3,000 random sentences; 32 planted sentences as log-probs
+    of unequal lengths (up to ~160 frames), half with the planted features'
+    noise (0.6), half noisier (1.5), a quarter rounded to half nats (ties at
+    the first beam's threshold), two rows cut short and one empty."""
+    from b2txt_tpu_torch.lm import Lexicon, train_ngram
+    from b2txt_tpu_torch.utils.phonemes import LOGIT_TO_PHONEME
+
+    rng = np.random.default_rng(order)
+    phones = LOGIT_TO_PHONEME[1:40]
+    words = {}
+    while len(words) < 340:
+        pron = [phones[i] for i in rng.integers(0, 39, int(rng.integers(2, 8)))]
+        words["w" + "".join(p.lower() for p in pron)] = pron
+    for w in list(words)[:40]:           # prefixes of longer words
+        if len(words[w]) > 3:
+            words[w + "x"] = words[w][:-1]
+    for g in range(12):                  # homophone classes
+        pron = [phones[i] for i in rng.integers(0, 39, 4)]
+        for j in range(homophones):
+            words[f"h{g}v{j}"] = pron
+    lexicon = Lexicon.from_words(words)
+    wl = list(words)
+    corpus = [[wl[i] for i in rng.integers(0, len(wl), int(rng.integers(3, 9)))]
+              for _ in range(3000)]
+    lm = train_ngram(corpus, order=order)
+    rows = []
+    for b in range(32):
+        sent = " ".join(corpus[int(rng.integers(0, 3000))][:6])
+        frames = []
+        for pid in lexicon.sentence_to_phonemes(sent):
+            for _ in range(int(rng.integers(1, 4))):
+                frames.append(pid)
+            frames += [0] * int(rng.integers(0, 3))
+        lp = np.full((len(frames), 41), -4.0, np.float32)
+        lp[np.arange(len(frames)), frames] = 0.0
+        lp += (0.6 if b % 2 else 1.5) * rng.standard_normal(lp.shape).astype(np.float32)
+        if b % 4 == 3:    # coarse values, as bf16 logits give: ties at the first beam's cut
+            lp = np.round(lp * 2) / 2
+        rows.append(lp - np.log(np.exp(lp).sum(-1, keepdims=True)))
+    T = max(r.shape[0] for r in rows)
+    batch = np.full((32, T, 41), -20.0, np.float32)
+    lens = np.zeros(32, np.int32)
+    for b, r in enumerate(rows):
+        batch[b, :r.shape[0]] = r
+        lens[b] = r.shape[0]
+    lens[5], lens[11], lens[20] = lens[5] // 2, lens[11] // 3, 0
+    return lexicon, lm, batch, lens
+
+
+def _kernel_against_expand(s, lp, lens):
+    """K6 against ``_expand`` with ``_frame_step``'s masking, frame by frame
+    from ``_expand``'s states: per row the live beams as a set with payload,
+    scores, parent and word bit for bit; rows past their length unchanged
+    with parents k and words -1; ``t`` advanced and the ticket back at 0
+    after every launch. Returns the live beams seen."""
+    from b2txt_tpu_torch.decode.lmbeam_device import NEG, LmBeamState, _select
+    from b2txt_tpu_torch.ops.beam_step import beam_step, workspace
+
+    B, T, V = lp.shape
+    K = s.config.beam_width
+    work = workspace(B, K, V, s.H, s.dev_lm.order, lp.device)
+    lens_d = torch.from_numpy(lens.astype(np.int64)).cuda()
+    t = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    ticket = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    parents = torch.full((T, B, K), -7, dtype=torch.int16, device="cuda")
+    words = torch.full((T, B, K), -7, dtype=torch.int32, device="cuda")
+    args = s._step_args()
+    state = s._make_state(B)
+    n_live, before = 0, beam_step.launches
+
+    def rows(st, par, wd):
+        """Per row its live beams' (h1, h2, node, last, ctx, scores and lm
+        as bits, parent, word), in a canonical order; and the state's
+        columns as int32."""
+        st = [x.cpu() for x in st]
+        bits = [x.view(torch.int32) if x.dtype == torch.float32 else x for x in st]
+        m = torch.cat([x.reshape(B, K, -1) for x in bits]
+                      + [par.to(torch.int32)[..., None], wd.to(torch.int32)[..., None]],
+                      -1).numpy()
+        live = (torch.maximum(st[5], st[6]) > NEG / 2).numpy()
+        out = []
+        for b in range(B):
+            r = m[b][live[b]]
+            out.append(r[np.lexsort(r.T[::-1])])
+        return out, bits
+
+    with torch.inference_mode():
+        for f in range(int(lens.max())):
+            new, par, _, wd = s._expand(state, lp[:, f], **args)
+            active = (lens_d > f)
+            want = _select(active, new, state)
+            got = LmBeamState(*(x.clone() for x in state))
+            s._kernel_step(got, lp, lens_d, t, ticket, parents, words, work)
+            assert t.item() == f + 1 and ticket.item() == 0
+            w_rows, _ = rows(want, par.cpu(), wd.cpu())
+            g_rows, g_bits = rows(got, parents[f].cpu(), words[f].cpu())
+            _, old_bits = rows(state, par.cpu(), wd.cpu())
+            for b in range(B):
+                if f < lens[b]:
+                    assert np.array_equal(g_rows[b], w_rows[b]), (f, b)
+                    n_live += len(g_rows[b])
+                else:
+                    for a, o in zip(g_bits, old_bits):
+                        assert torch.equal(a[b], o[b]), (f, b)
+                    assert parents[f, b].tolist() == list(range(K))
+                    assert words[f, b].tolist() == [-1] * K
+            state = want
+    assert beam_step.launches - before == int(lens.max())
+    return n_live
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sum_mode,first_beam,state_key,close_top,order", [
+    (False, 8, "history", None, 3),       # the session evaluation's options
+    (True, 8, "history", None, 3),
+    (True, None, "history", None, 3),
+    (True, 8, "history", 2, 3),
+    (False, None, "history", 2, 3),
+    (False, 8, "ngram", None, 3),
+    (False, None, "ngram", None, 3),
+    (False, 8, "ngram", 2, 3),
+    (False, 8, "history", None, 2),       # the repo's other n-gram orders
+    (False, 8, "history", None, 4),
+    (True, 8, "history", None, 5),
+])
+def test_beam_step_kernel_matches_expand(sum_mode, first_beam, state_key, close_top, order):
+    """K6 against ``_expand`` op by op on the card at the session
+    evaluation's search shape (B = 32, K = 48, H = 4, first beam 8 or
+    every phone), over planted and noisy frames and rows of unequal length."""
+    from b2txt_tpu_torch.decode.lmbeam_device import DeviceLexiconBeamSearch
+    from b2txt_tpu_torch.utils.config import DecodeConfig
+
+    _need_card()
+    lexicon, lm, batch, lens = _search_world(order)
+    cfg = DecodeConfig(acoustic_scale=0.325, blank_penalty=2.0, beam_width=48, nbest=10,
+                       first_beam_size=first_beam or 0, sum_mode=sum_mode, length_penalty=-0.3)
+    s = DeviceLexiconBeamSearch(lexicon, lm, cfg, close_probe_top=close_top,
+                                state_key=state_key, device="cuda")
+    assert s.H == 4 and s.trie.n_dropped > 0 and s.dev_lm.order == order
+    n_live = _kernel_against_expand(s, torch.from_numpy(batch).cuda(), lens)
+    assert n_live > 32 * 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sum_mode,first_beam", [(False, 8), (False, None), (True, None)])
+def test_beam_step_kernel_matches_expand_at_the_widest_beams(sum_mode, first_beam):
+    """K6 against ``_expand`` at the widest search the repo runs (the
+    DecodeConfig default and the scripts': K = 128, H = 6, 5-gram): with the
+    first beam of 8 the candidates stay in shared memory; with every phone
+    (~6,000 candidates a row) they and their sorts take the workspace."""
+    from b2txt_tpu_torch.decode.lmbeam_device import DeviceLexiconBeamSearch
+    from b2txt_tpu_torch.ops.beam_step import layout
+    from b2txt_tpu_torch.utils.config import DecodeConfig
+
+    _need_card()
+    lexicon, lm, batch, lens = _search_world(5, homophones=7)
+    cfg = DecodeConfig(acoustic_scale=0.325, blank_penalty=2.0, beam_width=128, nbest=10,
+                       first_beam_size=first_beam or 0, sum_mode=sum_mode, length_penalty=-0.3)
+    s = DeviceLexiconBeamSearch(lexicon, lm, cfg, max_homophones=6, device="cuda")
+    assert s.H == 6 and s.trie.n_dropped > 0 and s.dev_lm.order == 5
+    assert layout(128, 41, 6, 4, 5)[2] > 0
+    n_live = _kernel_against_expand(s, torch.from_numpy(batch).cuda(), lens)
+    assert n_live > 32 * 200
+
+
+@pytest.mark.gpu
+def test_beam_step_streaming_decode_matches_expand():
+    """The streaming ``decode`` on the card (K6 a frame, the blank skip's
+    reinserted frames unrecorded) against the same chunks through
+    ``_expand`` (the kernel's dispatch switched off): the same n-best."""
+    from b2txt_tpu_torch.decode.lmbeam_device import DeviceLexiconBeamSearch
+    from b2txt_tpu_torch.ops.beam_step import beam_step
+    from b2txt_tpu_torch.utils.config import DecodeConfig
+
+    _need_card()
+    lexicon, lm, batch, lens = _search_world(3)
+    cfg = DecodeConfig(acoustic_scale=0.325, blank_penalty=2.0, beam_width=48, nbest=10,
+                       first_beam_size=8, ctc_blank_skip_threshold=0.9, sum_mode=False)
+    s = DeviceLexiconBeamSearch(lexicon, lm, cfg, rescore_lm=lm, device="cuda")
+    out = {}
+    for kernel in (True, False):
+        before = beam_step.launches
+        with mock.patch.object(s, "_replays", return_value=kernel):
+            res = []
+            for b in (0, 1, 7):
+                s.reset()
+                for c0 in range(0, int(lens[b]), 32):
+                    s.decode(batch[b, c0:min(c0 + 32, int(lens[b]))])
+                res.append(s.finish_decoding())
+        out[kernel] = res
+        assert (beam_step.launches > before) == kernel
+    assert out[True] == out[False] and all(out[True])
+
+
+@pytest.mark.gpu
+def test_beam_step_smem_matches_the_source():
+    """The wrapper's count of shared memory and workspace is the kernel's,
+    at the cell's shape, beside it and at the widest beams."""
+    from b2txt_tpu_torch.ops import _build
+    from b2txt_tpu_torch.ops.beam_step import layout
+
+    _need_card()
+    lib = _build.beam_step_library().lib
+    for shape in [(48, 41, 4, 2, 3), (48, 41, 1, 2, 3), (64, 41, 4, 4, 5), (16, 41, 1, 1, 1),
+                  (48, 41, 4, 1, 2), (128, 41, 6, 4, 5), (128, 41, 4, 2, 3)]:
+        got = (lib.b2t_beam_step_smem(*shape), lib.b2t_beam_step_fixed(*shape),
+               lib.b2t_beam_step_work(*shape))
+        assert got == layout(*shape), shape
 
 
 def _routing(T, E, k, kind, gen):

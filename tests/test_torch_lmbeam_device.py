@@ -21,22 +21,10 @@ from b2txt_tpu.utils.config import DecodeConfig as JaxDecodeConfig
 from b2txt_tpu_torch.decode import lmbeam_device as lb
 from b2txt_tpu_torch.lm import Lexicon, train_ngram
 from b2txt_tpu_torch.utils.config import DecodeConfig
-
-LEX = {
-    "the": ["DH", "AH"], "cat": ["K", "AE", "T"], "sat": ["S", "AE", "T"],
-    "mat": ["M", "AE", "T"], "on": ["AA", "N"], "their": ["DH", "EH", "R"],
-    "there": ["DH", "EH", "R"], "is": ["IH", "Z"], "hat": ["HH", "AE", "T"],
-    "a": ["AH"],
-}
-CORPUS = [
-    "the cat sat on the mat".split(),
-    "there is the cat".split(),
-    "the cat is there".split(),
-    "there is a mat".split(),
-    "the cat sat on the hat".split(),
-    "a hat is on the mat".split(),
-] * 3
-SENTENCES = ["there is the cat", "the cat sat on the mat", "a hat is on the mat"]
+from torch_host_merge import host_viterbi_merge  # noqa: F401  (autouse)
+from torch_search_world import (  # noqa: F401  (shared with the files that import them here)
+    CORPUS, LEX, SENTENCES, batch_of, noisy_logprobs,
+)
 
 # the knob sweep of tests/test_searcher_crosscheck.py:77
 CONFIGS = [
@@ -57,29 +45,6 @@ CONFIGS = [
     dict(acoustic_scale=0.325, blank_penalty=9.0, first_beam_size=8,
          ctc_blank_skip_threshold=1.0, length_penalty=0.0, beam=0.0, sum_mode=False),
 ]
-
-
-def noisy_logprobs(ids, seed, hot=4.0, noise=0.6, frames_per=3):
-    rng = np.random.default_rng(seed)
-    rows = []
-    for pid in ids:
-        for _ in range(frames_per):
-            row = np.full(41, -hot, np.float32)
-            row[pid] = 0.0
-            rows.append(row)
-        blank = np.full(41, -hot, np.float32)
-        blank[0] = 0.0
-        rows.append(blank)
-    lp = np.stack(rows) + noise * rng.standard_normal((len(rows), 41)).astype(np.float32)
-    return lp - np.log(np.exp(lp).sum(-1, keepdims=True))
-
-
-def batch_of(lps):
-    T = max(lp.shape[0] for lp in lps)
-    batch = np.full((len(lps), T, 41), -20.0, np.float32)
-    for i, lp in enumerate(lps):
-        batch[i, : lp.shape[0]] = lp
-    return batch, np.asarray([lp.shape[0] for lp in lps], np.int32)
 
 
 def real(results):
@@ -188,3 +153,73 @@ def test_lazy_constructor_builds_the_searcher(world, jax_searchers):
         assert [(r.sentence, r.ac_score, r.lm_score) for r in got] == \
             [(r.sentence, r.ac_score, r.lm_score) for r in same]
         assert_same_nbest(got, want)
+
+
+@pytest.mark.parametrize("state_key", ["history", "ngram"])
+def test_viterbi_merge_keeps_each_paths_own_acoustic(world, state_key):
+    """Viterbi merge: each score component keeps its best path and that
+    path's acoustic score, as the host searchers' per-component merge does
+    (the benchmark's reference is one), not the largest acoustic score
+    among the merged paths. The smallest case seen: three random frames,
+    K = 8, where "is" is reached by two paths whose better-ranked one has
+    the lower acoustic score (the per-column max read -12.7009 for it, the
+    host searchers -12.7631)."""
+    lexicon, lm, jlex, jlm, _ = world
+    knobs = dict(nbest=10, beam_width=8, acoustic_scale=0.5, blank_penalty=1.0,
+                 first_beam_size=0, ctc_blank_skip_threshold=1.0, length_penalty=0.0,
+                 beam=0.0, sum_mode=False)
+    rng = np.random.default_rng(81)
+    lp = (2.0 * rng.standard_normal((3, 41))).astype(np.float32)
+    lp = lp - np.log(np.exp(lp).sum(-1, keepdims=True))
+    port = lb.DeviceLexiconBeamSearch(lexicon, lm, DecodeConfig(**knobs), state_key=state_key,
+                                      device="cpu")
+    got = real(port.decode_batch(lp[None], np.array([3], np.int32))[0])
+    host = JaxOracle(jlex, jlm, JaxDecodeConfig(**knobs), state_key=state_key)
+    host.decode(lp)
+    want = host.finish_decoding()
+    assert "is" in [r.sentence for r in got]
+    assert_same_nbest(got, want)
+
+
+def test_first_beam_keeps_every_phone_tied_at_its_threshold(world):
+    """The first beam extends by every phone at or above the frame's
+    first_beam-th best log-prob, ties included, as the host searchers
+    threshold it (K6 alike). The smallest case seen: two frames of
+    log-probs rounded to whole nats before normalizing, first beam 2,
+    where a phone tied with the second best starts "is"; a cut at exactly
+    two phones never reached it."""
+    lexicon, lm, jlex, jlm, _ = world
+    knobs = dict(nbest=10, beam_width=64, acoustic_scale=0.5, blank_penalty=1.0,
+                 first_beam_size=2, ctc_blank_skip_threshold=1.0, length_penalty=0.0,
+                 beam=0.0, sum_mode=True)
+    rng = np.random.default_rng(6)
+    lp = np.round(rng.standard_normal((2, 41)) * 1.5).astype(np.float32)
+    lp = lp - np.log(np.exp(lp).sum(-1, keepdims=True))
+    masked = np.delete(lp, [0, 40], axis=1)
+    assert (masked >= np.sort(masked, 1)[:, -2:-1]).sum(1).max() > 2     # a tie at the cut
+    port = lb.DeviceLexiconBeamSearch(lexicon, lm, DecodeConfig(**knobs), device="cpu")
+    got = real(port.decode_batch(lp[None], np.array([2], np.int32))[0])
+    host = JaxOracle(jlex, jlm, JaxDecodeConfig(**knobs))
+    host.decode(lp)
+    assert [r.sentence for r in got] == ["is"]
+    assert_same_nbest(got, host.finish_decoding())
+
+
+def test_beam_window_drops_the_beams_the_host_searchers_drop(world):
+    """Each frame drops the beams more than ``beam`` below the row's best,
+    as the host searchers do. The smallest case seen: two random frames,
+    K = 8, beam 3, where a path the window drops would otherwise merge into
+    "a" and lift its acoustic score (-7.757 against the host's -7.777)."""
+    lexicon, lm, jlex, jlm, _ = world
+    knobs = dict(nbest=10, beam_width=8, acoustic_scale=0.5, blank_penalty=1.0,
+                 first_beam_size=0, ctc_blank_skip_threshold=1.0, length_penalty=0.0,
+                 beam=3.0, sum_mode=True)
+    rng = np.random.default_rng(3)
+    lp = (rng.standard_normal((2, 41)) * 2).astype(np.float32)
+    lp = lp - np.log(np.exp(lp).sum(-1, keepdims=True))
+    port = lb.DeviceLexiconBeamSearch(lexicon, lm, DecodeConfig(**knobs), device="cpu")
+    got = real(port.decode_batch(lp[None], np.array([2], np.int32))[0])
+    host = JaxOracle(jlex, jlm, JaxDecodeConfig(**knobs))
+    host.decode(lp)
+    assert "a" in [r.sentence for r in got]
+    assert_same_nbest(got, host.finish_decoding())

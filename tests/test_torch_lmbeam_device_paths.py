@@ -16,7 +16,8 @@ from b2txt_tpu_torch.lm import Lexicon, train_ngram
 from b2txt_tpu_torch.utils.config import DecodeConfig
 
 from test_torch_lmbeam_device import (  # noqa: F401  (fixtures)
-    CONFIGS, CORPUS, assert_same_nbest, batch_of, jax_searchers, noisy_logprobs, world,
+    CONFIGS, CORPUS, assert_same_nbest, batch_of, host_viterbi_merge, jax_searchers,
+    noisy_logprobs, world,
 )
 
 

@@ -27,6 +27,7 @@ from b2txt_tpu_torch.models.planted import planted_params
 from b2txt_tpu_torch.serve import DecoderService
 from b2txt_tpu_torch.utils import TrainConfig
 from b2txt_tpu_torch.utils.config import DecodeConfig
+from torch_host_merge import host_viterbi_merge  # noqa: F401  (autouse)
 
 D, H, LAYERS, N_DAYS = 64, 64, 2, 4
 SENTENCES = ["hello world day", "good brain text", "day good hello", "brain text good world"]

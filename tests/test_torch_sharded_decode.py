@@ -112,7 +112,8 @@ def single(utterances):
 
 @pytest.fixture(scope="module")
 def jax_sharded(utterances):
-    """The JAX package's sharded decode on the 8-device mesh."""
+    """The JAX package's sharded decode on the 8-device mesh, merging and
+    windowing its beams as the host searchers do (tests/torch_host_merge.py)."""
     import jax
     from jax.sharding import Mesh
 
@@ -121,11 +122,14 @@ def jax_sharded(utterances):
     from b2txt_tpu.lm import train_ngram as jax_train_ngram
     from b2txt_tpu.utils.config import DecodeConfig as JaxDecodeConfig
 
+    from torch_host_merge import host_semantics
+
     arr, lens = utterances
     dev = JaxSearch(JaxLexicon.from_words(LEX), jax_train_ngram(CORPUS, order=3),
                     JaxDecodeConfig(**KNOBS))
     mesh = Mesh(np.array(jax.devices()[:8]), ("data",))
-    return _nbest(dev.sharded_decode_batch(arr, lens, mesh=mesh, axis="data"))
+    with host_semantics():
+        return _nbest(dev.sharded_decode_batch(arr, lens, mesh=mesh, axis="data"))
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-D{c[1]}")

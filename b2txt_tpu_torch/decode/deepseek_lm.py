@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.moe import moe_experts, route
+from ..utils.cuda_graphs import GraphCache
 from ..utils.device import resolve_device
 from ..utils.profiling import count, span
 from .packed_scorer import PackedScorer, score_packed_fn
@@ -399,19 +400,6 @@ def _bucket(n: int, least: int) -> int:
     return max(least, 1 << (max(n, 1) - 1).bit_length())
 
 
-class _ForwardGraph:
-    """One packed forward captured as a CUDA graph: its input buffers
-    (tokens, segment ids, positions) keep their addresses, and ``outputs``
-    (sums, counts, experts touched) are the graph's own; ``launches`` are
-    K5's launches inside it."""
-
-    def __init__(self, inputs):
-        self.inputs = inputs
-        self.graph = torch.cuda.CUDAGraph()
-        self.outputs = ()
-        self.launches = 0
-
-
 class DeepseekV2Rescorer(PackedScorer):
     """LLMScorer over the DeepSeek-V2 forward: the shared packed scorer,
     with spans ``dsv2.dispatch`` and ``dsv2.fetch``. ``encode`` maps (text,
@@ -451,7 +439,7 @@ class DeepseekV2Rescorer(PackedScorer):
                                  torch.Generator(device=device).manual_seed(seed))
         self.cfg = cfg
         self.n_moe_layers = cfg.num_hidden_layers - cfg.first_k_dense_replace
-        self._graphs: Dict[tuple, _ForwardGraph] = {}
+        self._graphs = GraphCache(self.GRAPH_CACHE, moe_experts, "dsv2.graph_captures")
         super().__init__(DeepseekV2Model.from_state_dict(cfg, params, device), encode, device,
                          min(max_len, cfg.max_position_embeddings), compute_dtype, pack)
 
@@ -482,34 +470,16 @@ class DeepseekV2Rescorer(PackedScorer):
         return sums, cnt, None if touched is None else {"moe.experts_touched": touched}
 
     def _replay(self, n_segments: int, tokens, seg, pos):
-        """The captured forward of this shape (captured now if new): the
-        inputs copied in, one replay, the outputs copied out."""
-        key = (tokens.device, tuple(tokens.shape), n_segments)
-        g = self._graphs.pop(key, None) or self._capture(n_segments, tokens, seg, pos)
-        self._graphs[key] = g      # the most recently used last
-        if len(self._graphs) > self.GRAPH_CACHE:
-            del self._graphs[next(iter(self._graphs))]
-        for buf, x in zip(g.inputs, (tokens, seg, pos)):
-            buf.copy_(x)
-        g.graph.replay()
-        moe_experts.launches += g.launches
-        return tuple(None if t is None else t.clone() for t in g.outputs)
+        """The captured forward of this shape: the inputs copied into its
+        buffers, one replay, the outputs copied out. A new shape's forward
+        is captured over copies of its inputs, after one warm-up forward."""
+        def capture():
+            inputs = tuple(t.clone() for t in (tokens, seg, pos))
+            return inputs, self._graphs.capture(lambda: self._forward(n_segments, *inputs),
+                                                tokens.device)
 
-    def _capture(self, n_segments: int, tokens, seg, pos) -> _ForwardGraph:
-        """One forward on a side stream (lazy initialisation), then one
-        captured into a new graph."""
-        g = _ForwardGraph(tuple(t.clone() for t in (tokens, seg, pos)))
-        device = tokens.device
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            self._forward(n_segments, *g.inputs)
-        torch.cuda.current_stream(device).wait_stream(side)
-        before = moe_experts.launches
-        # only this thread's calls are checked during the capture
-        with torch.cuda.graph(g.graph, capture_error_mode="thread_local"):
-            g.outputs = self._forward(n_segments, *g.inputs)
-        # the capture ran nothing: its launches count at each replay
-        g.launches, moe_experts.launches = moe_experts.launches - before, before
-        count("dsv2.graph_captures")
-        return g
+        inputs, g = self._graphs.get((tokens.device, tuple(tokens.shape), n_segments), capture)
+        for buf, x in zip(inputs, (tokens, seg, pos)):
+            buf.copy_(x)
+        g.replay()
+        return tuple(None if t is None else t.clone() for t in g.out)

@@ -26,10 +26,10 @@ What differs from the JAX module, and why:
   extraction as JAX's asynchronous dispatch does. On the card, with a
   ``DeviceNGram``, the frame step is one hand-written kernel, K6
   (``ops/beam_step.py``), where ``_expand`` op by op is ~600; a batch's
-  frames are replays of one CUDA graph of it (``_FrameGraph``), and the
-  streaming ``decode`` launches it a frame. Elsewhere (the CPU, the sharded
-  search) the frames are a Python loop over ``_expand``, the kernel's plain
-  version.
+  frames are replays of one CUDA graph of it (``_FrameGraph``, captured
+  through ``utils/cuda_graphs.py``), and the streaming ``decode`` launches
+  it a frame. Elsewhere (the CPU, the sharded search) the frames are a
+  Python loop over ``_expand``, the kernel's plain version.
 - The three-key ``lax.sort`` is two stable sorts: on the Viterbi rank, then
   on one int64 key ordering (k1, k2) as unsigned 32-bit pairs. Each
   segment's last element is therefore its best path, the representative
@@ -69,7 +69,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple, Union
+from typing import Iterable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -80,6 +80,7 @@ from ..lm.ngram import NGramLM
 from ..ops.beam_step import beam_step, workspace
 from ..ops.segment import sorted_segment_sum
 from ..utils.config import DecodeConfig
+from ..utils.cuda_graphs import Captured, GraphCache
 from ..utils.device import resolve_device
 from ..utils.device import upload as _upload
 from ..utils.phonemes import BLANK_ID, SIL_ID_MODEL
@@ -336,21 +337,18 @@ class _BatchHandle(NamedTuple):
 
 
 class _FrameGraph:
-    """The batched frame step in static form, for replay as a CUDA graph.
-
-    The step reads and writes buffers that keep their addresses: the beam
-    state (B, K, ·), the batch's log-probs (B, T_cap, V), its lengths (B,),
-    the frame counter ``t`` on the device and the backpointer rows (T_cap, B,
-    K). Each step reads frame ``t`` by index, keeps the beams of rows past
-    their length (on every frame: an all-true mask selects the new values
-    exactly), writes row ``t`` of the records and advances ``t``, so one
-    graph serves every frame of every batch of its shape. It holds its
-    ``dev_lm``, whose tensors the graph reads, so the id in its cache key
-    stays that LM's."""
+    """The buffers of the batched frame step, for replay as a CUDA graph of
+    K6: the beam state (B, K, ·), the batch's log-probs (B, T_cap, V), its
+    lengths (B,), the frame counter ``t`` on the device and the backpointer
+    rows (T_cap, B, K) keep their addresses. Each step reads frame ``t`` by
+    index, leaves the beams of rows past their length as they are, writes
+    row ``t`` of the records and advances ``t``, so one graph serves every
+    frame of every batch of its shape. It holds its ``dev_lm``, whose
+    tensors the graph reads, so the id in its cache key stays that LM's.
+    Off the card it holds the buffers and K6's workspace only."""
 
     def __init__(self, searcher: "DeviceLexiconBeamSearch", B: int, T_cap: int, V: int,
                  device: torch.device):
-        self.args = searcher._step_args()
         self.dev_lm = searcher.dev_lm
         self.T_cap = T_cap
         self.state = searcher._make_state(B)
@@ -360,11 +358,9 @@ class _FrameGraph:
         self.t = torch.zeros((1,), dtype=torch.int64, device=device)
         self.parents = torch.zeros((T_cap, B, K), dtype=torch.int16, device=device)
         self.words = torch.zeros((T_cap, B, K), dtype=torch.int32, device=device)
-        self.keep_k = torch.arange(K, dtype=torch.int32, device=device).expand(B, K)
         self.ticket = torch.zeros((1,), dtype=torch.int32, device=device)   # K6's rows done
         self.work = workspace(B, K, V, searcher.H, searcher.dev_lm.order, device)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.launches = 0   # K6's launches in one captured step
+        self.graph: Optional[Captured] = None
 
     def load(self, state: LmBeamState, lp: torch.Tensor, lens: torch.Tensor,
              n_frames: int) -> None:
@@ -449,9 +445,8 @@ class DeviceLexiconBeamSearch:
         self.rescore_lm: Optional[DeviceNGram] = None
         if rescore_lm is not None:
             self.attach_rescore_lm(rescore_lm)
-        # captured frame steps by shape and step options, least recently
-        # used first
-        self._graphs: Dict[tuple, _FrameGraph] = {}
+        # captured frame steps by shape, step options and LM
+        self._graphs = GraphCache(GRAPH_CACHE, beam_step, "search.graph_captures")
         self.reset()
 
     def attach_rescore_lm(self, lm) -> None:
@@ -768,8 +763,9 @@ class DeviceLexiconBeamSearch:
         Returns the final state and the backpointers (parents int16, words
         int32), each (T, B, K).
 
-        On the card with a ``DeviceNGram`` the frames replay a captured
-        frame step (``_scan_graph``); elsewhere they run op by op."""
+        Where ``_replays`` holds, the frames are replays of a captured graph
+        of K6 (``_scan_graph``); elsewhere they are ``_expand``'s loop
+        (``_scan_eager``)."""
         B, T, V = lp.shape
         K = state.s.shape[1]
         if n_frames is None:
@@ -823,65 +819,25 @@ class DeviceLexiconBeamSearch:
                   ngram_key=self.state_key == "ngram", blank=self.blank, sil=self.sil,
                   la0=self.la0, t_offset=t_offset, advance=advance, work=work)
 
-    def _frame_step(self, fg: _FrameGraph) -> None:
-        """One frame of ``fg``'s batch, in place: the static form of
-        ``_scan_eager``'s loop body, masked on every frame. On the card with
-        a plain ``DeviceNGram`` it is K6's one launch, which also advances
-        ``t``."""
-        if self._replays(fg.lp):
-            self._kernel_step(fg.state, fg.lp, fg.lens, fg.t, fg.ticket, fg.parents, fg.words,
-                              fg.work)
-            return
-        lp = fg.lp.index_select(1, fg.t)[:, 0]
-        new, par, _, wd = self._expand(fg.state, lp, **fg.args)
-        active = fg.lens > fg.t
-        for buf, x in zip(fg.state, _select(active, new, fg.state)):
-            buf.copy_(x)
-        par = torch.where(active[:, None], par, fg.keep_k)
-        fg.parents.index_copy_(0, fg.t, par.to(torch.int16)[None])
-        fg.words.index_copy_(0, fg.t, torch.where(active[:, None], wd, -1)[None])
-        fg.t += 1
-
     def _frame_graph(self, B: int, V: int, n_frames: int, device: torch.device) -> _FrameGraph:
         """The captured frame step for this shape, these step options and
-        this LM: from the cache, or captured now (after two warm-up steps on
-        a side stream). A batch longer than the entry's frame capacity
-        captures anew with a larger one."""
+        this LM: from the cache, or captured now over a new ``_FrameGraph``'s
+        buffers, K6's one launch after two warm-up launches, ``t`` back to 0
+        before each. A batch longer than the entry's frame capacity captures
+        anew with a larger one."""
         key = (device, B, V, self.config.beam_width, max(self.order - 1, 1), self.H,
                tuple(sorted(self._step_args().items())), self.close_top, self.state_key,
                id(self.dev_lm))
-        fg = self._graphs.pop(key, None)
-        if fg is not None and fg.T_cap < n_frames:
-            fg = None   # its graph and memory pool go before the new capture
-        if fg is None:
-            fg = _FrameGraph(self, B, -(-n_frames // GRAPH_T_STEP) * GRAPH_T_STEP, V, device)
-            self._capture(fg)
-        self._graphs[key] = fg     # the most recently used last
-        if len(self._graphs) > GRAPH_CACHE:
-            del self._graphs[next(iter(self._graphs))]
-        return fg
 
-    def _capture(self, fg: _FrameGraph) -> None:
-        """Two warm-up steps of ``fg`` on a side stream, then one step
-        captured into its CUDA graph."""
-        device = fg.t.device
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                fg.t.zero_()
-                self._frame_step(fg)
-        torch.cuda.current_stream(device).wait_stream(side)
-        fg.graph = torch.cuda.CUDAGraph()
-        before = beam_step.launches
-        # only this thread's calls are checked during the capture: another
-        # thread of the program may be using the card at the time (the
-        # training loader's prefetch thread uploads from one)
-        with torch.cuda.graph(fg.graph, capture_error_mode="thread_local"):
-            self._frame_step(fg)
-        # the capture ran nothing: its launches count at each replay
-        fg.launches, beam_step.launches = beam_step.launches - before, before
-        count("search.graph_captures")
+        def capture() -> _FrameGraph:
+            fg = _FrameGraph(self, B, -(-n_frames // GRAPH_T_STEP) * GRAPH_T_STEP, V, device)
+            fg.graph = self._graphs.capture(
+                lambda: self._kernel_step(fg.state, fg.lp, fg.lens, fg.t, fg.ticket, fg.parents,
+                                          fg.words, fg.work),
+                device, warmups=2, reset=fg.t.zero_)
+            return fg
+
+        return self._graphs.get(key, capture, fits=lambda fg: fg.T_cap >= n_frames)
 
     def _scan_graph(self, state: LmBeamState, lp: torch.Tensor, lens: torch.Tensor,
                     n_frames: int):
@@ -891,9 +847,7 @@ class DeviceLexiconBeamSearch:
         with torch.inference_mode():
             fg = self._frame_graph(B, V, n_frames, lp.device)
             fg.load(state, lp, lens, n_frames)
-            for _ in range(n_frames):
-                fg.graph.replay()
-            beam_step.launches += fg.launches * n_frames
+            fg.graph.replay(n_frames)
             count("search.graph_frames", n_frames)
             return fg.result(n_frames)
 

@@ -1128,8 +1128,8 @@ def phase_kernel_beam_step(searcher, lp, lens):
     (live beams and n-best), K6's time a frame (CUDA events over the
     batch's replays after a warm-up run, and the profiler's device time a
     launch) beside its byte bound, in the same call the plain ``_expand``
-    op by op (host clock to a sync) and a captured graph of those ops, and
-    ptxas's registers and spills. Returns the figures."""
+    op by op (host clock to a sync), and ptxas's registers and spills.
+    Returns the figures."""
     import re
 
     import torch
@@ -1154,27 +1154,22 @@ def phase_kernel_beam_step(searcher, lp, lens):
                                            tuple(r.cpu().numpy() for r in recs), None)
                  for st, recs in (got, want)]
         fg = searcher._frame_graph(B, V, n, lp.device)
-        ops = lb._FrameGraph(searcher, B, fg.T_cap, V, lp.device)
-        with mock.patch.object(searcher, "_replays", return_value=False):
-            searcher._capture(ops)
 
-        def replays_ms(g, reps: int = 3) -> float:
+        def replays_ms(reps: int = 3) -> float:
             total = 0.0
             for i in range(reps + 1):     # the first run warms up
-                g.load(searcher._make_state(B), lp, lens_dev, n)
+                fg.load(searcher._make_state(B), lp, lens_dev, n)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                for _ in range(n):
-                    g.graph.replay()
+                fg.graph.replay(n)
                 end.record()
                 torch.cuda.synchronize()
                 total += start.elapsed_time(end) if i else 0.0
             return total / (reps * n)
 
-        graph_ms = replays_ms(fg)
-        ops_graph_ms = replays_ms(ops)
-        graph_ms_again = replays_ms(fg)
+        graph_ms = replays_ms()
+        graph_ms_again = replays_ms()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         searcher._scan_eager(searcher._make_state(B), lp, lens, lens_dev, n)
@@ -1182,8 +1177,7 @@ def phase_kernel_beam_step(searcher, lp, lens):
         plain_ms = (time.perf_counter() - t0) * 1e3 / n
         fg.load(searcher._make_state(B), lp, lens_dev, n)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fg.graph.replay()
+            fg.graph.replay(n)
             torch.cuda.synchronize()
         k6 = [e for e in prof.key_averages() if "beam_step_kernel" in e.key]
         kernel_us = (sum(e.device_time_total for e in k6) / sum(e.count for e in k6)
@@ -1202,7 +1196,7 @@ def phase_kernel_beam_step(searcher, lp, lens):
            "ms": ms, "ms_runs": [graph_ms, graph_ms_again],
            "ms_is": "a frame: CUDA events over the batch's graph replays, mean of 3 runs",
            "kernel_us": kernel_us, "kernel_us_is": "the profiler's device time a launch",
-           "ops_graph_ms": ops_graph_ms, "plain_ms": plain_ms,
+           "plain_ms": plain_ms,
            "plain_ms_is": "_expand op by op, host clock to a sync, a frame",
            "bound_ms": bound_us / 1e3, "bound_by": "bytes",
            "share_of_bound": bound_us / 1e3 / ms, "registers": regs, "spill_bytes": spills,

@@ -511,7 +511,7 @@ def _search_world(order: int, homophones: int = 5):
 
 
 def _kernel_against_expand(s, lp, lens):
-    """K6 against ``_expand`` with ``_frame_step``'s masking, frame by frame
+    """K6 against ``_expand`` with ``_scan_eager``'s masking, frame by frame
     from ``_expand``'s states: per row the live beams as a set with payload,
     scores, parent and word bit for bit; rows past their length unchanged
     with parents k and words -1; ``t`` advanced and the ticket back at 0
@@ -803,3 +803,37 @@ def test_deepseek_rescorer_graph_replay_equals_the_eager_forward():
     assert moe_experts.launches - before == 2 * 2 * n_moe
     for got, want in ((first, want_a), (got_a, want_a), (got_b, want_b)):
         np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_graph_capture_warms_up_then_moves_the_launches_to_each_replay():
+    """``utils/cuda_graphs``' capture on the card: the warm-up calls run,
+    each after ``reset``; the captured call runs nothing, and its kernel
+    launches count at each replay instead; one capture is counted by name,
+    and ``out`` is the graph's own tensor, written anew by each replay."""
+    from types import SimpleNamespace
+
+    from b2txt_tpu_torch.utils import profiling
+    from b2txt_tpu_torch.utils.cuda_graphs import GraphCache
+
+    _need_card()
+    kernel = SimpleNamespace(launches=0)
+    x = torch.zeros(4, device="cuda")
+    resets = []
+
+    def step():
+        kernel.launches += 1
+        return x.add_(1) * 2
+
+    cache = GraphCache(2, kernel, "test.graph_captures")
+    with profiling.tracing():
+        g = cache.get("k", lambda: cache.capture(step, x.device, warmups=3,
+                                                 reset=lambda: resets.append(len(resets))))
+        torch.cuda.synchronize()
+        assert x.tolist() == [3.0] * 4 and resets == [0, 1, 2]
+        assert kernel.launches == 3 and g.launches == 1
+        g.replay(2)
+        torch.cuda.synchronize()
+        captures = profiling.counters()["test.graph_captures"]
+    assert x.tolist() == [5.0] * 4 and g.out.tolist() == [10.0] * 4
+    assert kernel.launches == 5 and captures == 1 and len(cache) == 1

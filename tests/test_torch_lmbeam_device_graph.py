@@ -1,11 +1,10 @@
-"""The device searcher's frame step in static form (``_FrameGraph``), run op
-by op on the CPU, against the eager frame loop bit for bit: final state,
-backpointers, words and n-best. On the card the step is K6, the frame-step
-kernel, and a CUDA graph of it replays each frame: there the replayed
-search is held to the loop of ``_expand`` on the card, live beams as a set
-(tests/test_torch_kernels_gpu.py holds K6 against ``_expand`` frame by
-frame). Also the graph cache's keys, where the search takes the eager loop,
-and K6's wrapper's checks. Imports neither JAX nor the JAX package."""
+"""The device searcher's captured frame step (``_FrameGraph``) off the
+card: the graph cache's keys, where the search takes ``_expand``'s loop,
+that the captured step and the streaming decode are K6's launches with the
+searcher's options, and K6's wrapper's checks. On the card
+tests/test_torch_kernels_gpu.py holds the replayed graph of K6 to
+``_expand``'s loop, and K6 to ``_expand`` frame by frame. Imports neither
+JAX nor the JAX package."""
 
 from types import SimpleNamespace
 from unittest import mock
@@ -15,7 +14,6 @@ import pytest
 import torch
 
 from b2txt_tpu_torch.decode import lmbeam_device as lb
-from b2txt_tpu_torch.decode.lmbeam_device import live_beams
 from b2txt_tpu_torch.lm import Lexicon, train_ngram
 from b2txt_tpu_torch.lm.device_ngram import ShardedNGram
 from b2txt_tpu_torch.utils.config import DecodeConfig
@@ -44,99 +42,6 @@ def _batch(world, lengths):
     return batch, np.asarray(lengths, np.int32)
 
 
-def _static_scan(searcher, fg, lp, lengths):
-    """``_scan_batch``'s frames as ``_frame_step`` calls on ``fg``'s buffers."""
-    n = min(lp.shape[1], int(lengths.max()))
-    fg.load(searcher._make_state(lp.shape[0]), lp, torch.from_numpy(lengths.astype(np.int64)), n)
-    for _ in range(n):
-        searcher._frame_step(fg)
-    return fg.result(n)
-
-
-def _nbest(searcher, state, recs):
-    final = tuple(t.cpu().numpy() for t in searcher._finalize(state))
-    return searcher._extract_results(final, tuple(r.cpu().numpy() for r in recs), None)
-
-
-def _assert_same_live(searcher, got, want):
-    """The same live beams in every row, with the same words, and the same
-    n-best: where K6 and ``torch.topk`` order beams of equal totals
-    differently, the beams' slots (and so the parents) differ."""
-    live = live_beams(*got)
-    assert live == live_beams(*want) and any(live)
-    assert _nbest(searcher, *got) == _nbest(searcher, *want)
-
-
-def _card_replay_equals_eager(cfg, state_key, batches):
-    """On the card: each batch's frames replayed from the captured graph of
-    K6 against ``_expand``'s loop on the card; one capture for both batches,
-    every frame one K6 launch."""
-    from b2txt_tpu_torch.ops.beam_step import beam_step
-
-    lexicon, lm = batches[0][0], batches[0][1]
-    searcher = lb.DeviceLexiconBeamSearch(lexicon, lm, cfg, state_key=state_key, device="cuda")
-    before = beam_step.launches
-    with tracing(), torch.inference_mode():
-        for _, _, lp, lens in batches:
-            lp = torch.from_numpy(lp).cuda()
-            got = searcher._scan_batch(searcher._make_state(lp.shape[0]), lp, lens)
-            n = int(lens.max())
-            want = searcher._scan_eager(searcher._make_state(lp.shape[0]), lp, lens,
-                                        torch.from_numpy(lens.astype(np.int64)).cuda(), n)
-            _assert_same_live(searcher, got, want)
-    frames = sum(int(b[3].max()) for b in batches)
-    c = counters()
-    assert c["search.graph_frames"] == frames and c["search.graph_captures"] == 1
-    assert beam_step.launches - before == frames + 2   # the capture's two warm-up steps
-
-
-def _assert_same_scan(searcher, got, want):
-    (st_g, (par_g, wd_g)), (st_w, (par_w, wd_w)) = got, want
-    for name, a, b in zip(lb.LmBeamState._fields, st_g, st_w):
-        assert a.dtype == b.dtype and torch.equal(a, b), name
-    assert par_g.dtype == par_w.dtype == torch.int16 and torch.equal(par_g, par_w)
-    assert wd_g.dtype == wd_w.dtype == torch.int32 and torch.equal(wd_g, wd_w)
-    assert _nbest(searcher, *got) == _nbest(searcher, *want)
-
-
-@pytest.mark.parametrize("lengths,sum_mode,first_beam,state_key", [
-    ((50, 84, 70), True, 0, "history"),          # unequal lengths
-    ((50, 84, 70), True, 6, "history"),
-    ((50, 84, 70), False, 8, "history"),
-    ((50, 84, 70), False, 0, "ngram"),
-    ((56, 0, 76, 0), True, 6, "history"),        # padded with length-0 rows
-    ((56, 0, 76, 0), False, 8, "ngram"),
-    ((56, 56, 56), False, 0, "history"),         # every frame unmasked
-])
-def test_static_frame_step_equals_eager_scan(world, lengths, sum_mode, first_beam, state_key):
-    """The static step, masked on every frame, reading frame t by index from
-    a buffer with more frames than the batch (left NaN past it), gives the
-    eager loop's bits; so does a second, shorter batch through the same
-    buffers."""
-    lexicon, lm = world[0], world[1]
-    cfg = DecodeConfig(nbest=10, beam_width=64, acoustic_scale=0.5, blank_penalty=1.0,
-                       first_beam_size=first_beam, ctc_blank_skip_threshold=1.0,
-                       sum_mode=sum_mode)
-    searcher = lb.DeviceLexiconBeamSearch(lexicon, lm, cfg, state_key=state_key, device="cpu")
-    with torch.inference_mode():
-        lp, lens = _batch(world, lengths)
-        lp = torch.from_numpy(lp)
-        fg = lb._FrameGraph(searcher, lp.shape[0], lp.shape[1] + 7, lp.shape[2], CPU)
-        fg.lp.fill_(float("nan"))
-        eager = searcher._scan_batch(searcher._make_state(lp.shape[0]), lp, lens)
-        assert eager[1][0].shape[0] == max(lengths)
-        _assert_same_scan(searcher, _static_scan(searcher, fg, lp, lens), eager)
-
-        shorter = np.minimum(lens, 40)
-        lp2 = torch.flip(lp, [0])[:, :40]
-        eager2 = searcher._scan_batch(searcher._make_state(lp.shape[0]), lp2, shorter)
-        _assert_same_scan(searcher, _static_scan(searcher, fg, lp2, shorter), eager2)
-    if torch.cuda.is_available():
-        _card_replay_equals_eager(cfg, state_key, [
-            (lexicon, lm, lp.numpy(), lens),
-            (lexicon, lm, np.ascontiguousarray(lp2.numpy()), shorter)])
-
-
 def _searcher(world, **cfg):
     return lb.DeviceLexiconBeamSearch(world[0], world[1], DecodeConfig(beam_width=16, **cfg),
                                       device="cpu")
@@ -148,7 +53,8 @@ def test_graph_cache_keys(world):
     entry's frame capacity captures anew; the cache keeps GRAPH_CACHE."""
     s = _searcher(world, first_beam_size=6)
     captured = []
-    with mock.patch.object(s, "_capture", side_effect=captured.append), torch.inference_mode():
+    with mock.patch.object(s._graphs, "capture", side_effect=lambda *a, **k: captured.append(a)), \
+            torch.inference_mode():
         fg = s._frame_graph(3, 41, 10, CPU)
         assert fg.T_cap == lb.GRAPH_T_STEP and len(captured) == 1
         assert s._frame_graph(3, 41, lb.GRAPH_T_STEP, CPU) is fg     # within capacity
@@ -162,7 +68,7 @@ def test_graph_cache_keys(world):
         assert s._frame_graph(4, 41, 5, CPU) is not longer            # another B
         s.set_opt(DecodeConfig(beam_width=16, first_beam_size=6, acoustic_scale=0.7))
         other_args = s._frame_graph(3, 41, 5, CPU)
-        assert other_args is not longer and other_args.args["scale"] == 0.7
+        assert other_args is not longer and ("scale", 0.7) in list(s._graphs.entries)[-1][6]
         s.set_opt(DecodeConfig(beam_width=16, first_beam_size=6))
         assert s._frame_graph(3, 41, 5, CPU) is longer                # the options back
 
@@ -177,7 +83,7 @@ def test_graph_cache_keys(world):
         for B in range(5, 5 + lb.GRAPH_CACHE):
             s._frame_graph(B, 41, 5, CPU)
         assert len(s._graphs) == lb.GRAPH_CACHE
-        assert longer not in s._graphs.values()                       # least recently used
+        assert longer not in s._graphs.entries.values()               # least recently used
         assert len(captured) == 5 + lb.GRAPH_CACHE
 
 
@@ -268,16 +174,22 @@ def test_beam_step_workspace_for_the_widest_beams(world):
 
 
 def test_frame_step_and_streaming_decode_launch_the_kernel_where_they_replay(world):
-    """Where ``_replays`` holds, the graph's step and the streaming decode
-    are K6's launches with the searcher's options (the step advancing ``t``,
-    the stream one launch a kept frame at its offset and one unrecorded for
-    a reinserted blank frame), and ``_expand`` is not called; where it does
-    not (the CPU here), ``_expand`` runs and K6 never."""
-    s, fg = _fg(world, first_beam_size=6, sum_mode=False, length_penalty=-0.5)
+    """Where ``_replays`` holds, the graph's captured step and the streaming
+    decode are K6's launches with the searcher's options (the step advancing
+    ``t`` after two warm-ups, each from ``t`` = 0; the stream one launch a
+    kept frame at its offset and one unrecorded for a reinserted blank
+    frame), and ``_expand`` is not called; where it does not (the CPU here),
+    the decode and the batch run ``_expand`` and K6 never. The captured step
+    has no CPU fallback: there K6's wrapper refuses it."""
+    s = _searcher(world, first_beam_size=6, sum_mode=False, length_penalty=-0.5)
     s.close_top = 2
+    step_once = mock.patch.object(s._graphs, "capture", side_effect=lambda step, *a, **k: step())
     with mock.patch.object(lb, "beam_step") as k6, mock.patch.object(s, "_expand") as expand, \
-            mock.patch.object(s, "_replays", return_value=True), torch.inference_mode():
-        s._frame_step(fg)
+            mock.patch.object(s, "_replays", return_value=True), step_once as capture, \
+            torch.inference_mode():
+        fg = s._frame_graph(3, 41, 16, CPU)
+        assert capture.call_args.args[1:] == (CPU,)
+        assert capture.call_args.kwargs == dict(warmups=2, reset=fg.t.zero_)
         (state, lp, lens, t, ticket, parents, words, trie, dev_lm), kw = k6.call_args
         assert state is fg.state and lp is fg.lp and lens is fg.lens and t is fg.t
         assert ticket is fg.ticket and parents is fg.parents and words is fg.words
@@ -309,5 +221,6 @@ def test_frame_step_and_streaming_decode_launch_the_kernel_where_they_replay(wor
         s.decode(lp)
         lp_b, lens = _batch(world, (20, 12))
         _, (par, _) = s._scan_batch(s._make_state(2), torch.from_numpy(lp_b), lens)
-        s._frame_step(fg)
     assert par.shape == (20, 2, 16) and s.n_frames == 5
+    with step_once, pytest.raises(ValueError, match="runs on CUDA tensors only"):
+        s._frame_graph(2, 41, 16, CPU)

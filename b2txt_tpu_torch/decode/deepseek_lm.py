@@ -395,11 +395,6 @@ class DeepseekV2Model(nn.Module):
         return y.view(B, L, D)
 
 
-def _bucket(n: int, least: int) -> int:
-    """The smallest power of two that is at least ``n`` and ``least``."""
-    return max(least, 1 << (max(n, 1) - 1).bit_length())
-
-
 class DeepseekV2Rescorer(PackedScorer):
     """LLMScorer over the DeepSeek-V2 forward: the shared packed scorer,
     with spans ``dsv2.dispatch`` and ``dsv2.fetch``. ``encode`` maps (text,
@@ -410,9 +405,8 @@ class DeepseekV2Rescorer(PackedScorer):
     The rows are padded to a power of two (at least 2) and the segment bins
     to one (at least 16), so a few shapes serve every n-best. On the card
     each shape's forward is captured once as a CUDA graph (the kernels of
-    27 layers, ~2,500 launch calls eagerly) and replayed: a dispatch is a
-    copy of the inputs, one replay and copies of the outputs, which a later
-    replay leaves as they are.
+    27 layers, ~2,500 launch calls eagerly) and replayed (``PackedScorer``);
+    on the CPU it runs op by op.
 
     Counters: ``moe.tokens``, the tokens into MoE layers (known on the
     host); ``moe.experts_touched``, the experts that saw a token, summed over
@@ -420,6 +414,7 @@ class DeepseekV2Rescorer(PackedScorer):
     scores; ``dsv2.graph_captures``."""
 
     span_name = "dsv2"
+    ROWS_LEAST = 2
     GRAPH_CACHE = 16  # captured shapes kept, the least recently used dropped
 
     def __init__(
@@ -447,12 +442,6 @@ class DeepseekV2Rescorer(PackedScorer):
         count("moe.tokens", sum(map(len, ids)) * self.n_moe_layers)
         return super()._begin(ids, length_penalty)
 
-    def _pack_arrays(self, ids: List[List[int]]):
-        tokens, seg, pos, n_segments = super()._pack_arrays(ids)
-        pad = np.zeros((_bucket(tokens.shape[0], 2) - tokens.shape[0], tokens.shape[1]), np.int64)
-        return (*(np.concatenate([a, pad]) for a in (tokens, seg, pos)),
-                _bucket(n_segments, 16))
-
     def _forward(self, n_segments: int, tokens, seg, pos):
         """(sums, counts, experts touched or None) of one packed forward."""
         routing: List = []
@@ -462,24 +451,5 @@ class DeepseekV2Rescorer(PackedScorer):
             return sums, cnt, None
         return sums, cnt, torch.stack([c[:-1] for _, c in routing]).gt(0).sum()
 
-    def _packed(self, n_segments: int, tokens, seg, pos):
-        if tokens.device.type == "cuda":
-            sums, cnt, touched = self._replay(n_segments, tokens, seg, pos)
-        else:
-            sums, cnt, touched = self._forward(n_segments, tokens, seg, pos)
-        return sums, cnt, None if touched is None else {"moe.experts_touched": touched}
-
-    def _replay(self, n_segments: int, tokens, seg, pos):
-        """The captured forward of this shape: the inputs copied into its
-        buffers, one replay, the outputs copied out. A new shape's forward
-        is captured over copies of its inputs, after one warm-up forward."""
-        def capture():
-            inputs = tuple(t.clone() for t in (tokens, seg, pos))
-            return inputs, self._graphs.capture(lambda: self._forward(n_segments, *inputs),
-                                                tokens.device)
-
-        inputs, g = self._graphs.get((tokens.device, tuple(tokens.shape), n_segments), capture)
-        for buf, x in zip(inputs, (tokens, seg, pos)):
-            buf.copy_(x)
-        g.replay()
-        return tuple(None if t is None else t.clone() for t in g.out)
+    def _counters(self, touched) -> Optional[Dict[str, torch.Tensor]]:
+        return None if touched is None else {"moe.experts_touched": touched}

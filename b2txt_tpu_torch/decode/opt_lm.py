@@ -29,13 +29,15 @@ What differs from the JAX module, and why:
   ``OPTRescorer(mesh=...)`` also shards its rows over "data": every rank
   scores the whole list's rows it owns and the per-segment sums (or the
   rows' sums) meet over the data group.
-- Shapes are not bucketed: the JAX rescorer rounds the row count to 8, the
-  unpacked length to 16, the segment count to 32 and the context length to
-  32 for XLA's compile cache. Eager PyTorch compiles nothing per shape, so
-  the port runs the exact row, segment and context counts. The packing row
-  width (at least 64, a multiple of 16) is kept: it decides which
-  hypotheses share a row. Padding never changes a score, so the scores are
-  the JAX package's either way (tests/test_torch_opt_lm.py).
+- Shapes are bucketed otherwise: the JAX rescorer rounds the row count to
+  8, the unpacked length to 16, the segment count to 32 and the context
+  length to 32 for XLA's compile cache. The port pads the packed rows and
+  the segment bins to powers of two (at least 1 and 16), the keys of its
+  CUDA graphs (``PackedScorer``), and runs the exact unpacked and context
+  counts, which it runs op by op. The packing row width (at least 64, a
+  multiple of 16) is kept: it decides which hypotheses share a row.
+  Padding never changes a score, so the scores are the JAX package's
+  either way (tests/test_torch_opt_lm.py).
 - The score functions take the model where the JAX ones take params, and
   no ``cfg`` (the model carries it).
 - Layer norms are ``F.layer_norm`` (one kernel, f32 statistics); the JAX
@@ -52,6 +54,7 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -59,6 +62,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.cuda_graphs import GraphCache
 from ..utils.device import resolve_device, upload
 from .packed_scorer import (PackedScorer, _fetcher, _packed_sums, _segment_sum,  # noqa: F401
                             pack_sequences, score_packed_fn, score_tokens_fn, word_hash_encode)
@@ -492,9 +496,19 @@ class OPTRescorer(PackedScorer):
     (packed or not) shard over "data", padded to a multiple of its size.
     Packed segment sums meet in an all_reduce over the data group, row sums
     in an all-gather; a context stays whole on every rank. Every rank
-    returns every score."""
+    returns every score.
+
+    The packed rows are padded to a power of two (at least 1: OPT is dense,
+    so a padded row costs real GEMM rows) and the segment bins to one (at
+    least 16). Without a mesh, on the card, each shape's packed forward is
+    captured once as a CUDA graph (~22 kernels a layer, ~727 launch calls
+    eagerly at 32 layers) and replayed (``PackedScorer``); its captures count
+    as ``opt.graph_captures``. The mesh's forward all-reduces inside its
+    layers, and runs op by op, as do the prefix-KV context path, the
+    unpacked rows and the CPU."""
 
     span_name = "opt"
+    GRAPH_CACHE = 16  # captured shapes kept, the least recently used dropped
 
     def __init__(
         self,
@@ -517,6 +531,11 @@ class OPTRescorer(PackedScorer):
             device = mesh_device(device)
         self.mesh = mesh
         self.cfg = cfg
+        if mesh is None:
+            # the forward's kernels are cuBLAS's and PyTorch's: a counter of
+            # its own stands for GraphCache's kernel
+            self._graphs = GraphCache(self.GRAPH_CACHE, SimpleNamespace(launches=0),
+                                      "opt.graph_captures")
         if encode is None:
             logging.getLogger("b2txt_tpu_torch.opt").warning(
                 "OPTRescorer: no tokenizer supplied — falling back to a "

@@ -6,7 +6,8 @@ positions=None, segment_ids=None)`` returns float32 logits (B, L, vocab)
 and, with ``segment_ids``, attends block-diagonally and causally within
 each segment, ``positions`` counting from 0 in each (``OPTModel``,
 ``DeepseekV2Model``). ``PackedScorer`` is the ``LLMScorer`` over such a
-model; ``OPTRescorer`` adds its mesh and its shared-context path.
+model, and on the card it replays each packed shape's forward from one CUDA
+graph; ``OPTRescorer`` adds its mesh and its shared-context path.
 
 Score = Σ log P(token_t | tokens_<t) over a hypothesis' tokens after the
 first, less length_penalty · n_tokens (the reference's rescore_with_gpt2,
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.segment import segment_sum
+from ..utils.cuda_graphs import GraphCache
 from ..utils.device import upload
 from ..utils.profiling import count, current_rid, span
 
@@ -113,6 +115,11 @@ def score_packed_fn(n_segments: int, compute_dtype: torch.dtype = torch.float32,
     return score
 
 
+def _bucket(n: int, least: int) -> int:
+    """The smallest power of two that is at least ``n`` and ``least``."""
+    return max(least, 1 << (max(n, 1) - 1).bit_length())
+
+
 def _fetcher(sums: torch.Tensor, cnt: torch.Tensor, lo: int, n: int, length_penalty: float,
              name: str, counters: Optional[Dict[str, torch.Tensor]] = None,
              ) -> Callable[[], List[float]]:
@@ -147,10 +154,22 @@ class PackedScorer:
     are ``<span_name>.dispatch`` and ``<span_name>.fetch``.
 
     A context is concatenated before each text (``supports_context``
-    False): llm_rescore then passes it prepended, with the same totals."""
+    False): llm_rescore then passes it prepended, with the same totals.
+
+    The packed rows are padded to a power of two (at least ``ROWS_LEAST``)
+    and the segment bins to one (at least ``BINS_LEAST``), so a few shapes
+    serve every n-best. Where the scorer keeps a ``GraphCache`` (``_graphs``,
+    set by a subclass) and the tokens are on the card, each shape's forward
+    is captured once as a CUDA graph and replayed: a dispatch is a copy of
+    the inputs into the graph's buffers, one replay and copies of the
+    outputs, which a later replay leaves as they are. Elsewhere (the CPU, a
+    scorer without a cache) the forward runs op by op."""
 
     span_name = "lm"
     supports_context = False
+    ROWS_LEAST = 1    # the packed rows' least bucket
+    BINS_LEAST = 16   # the segment bins' least bucket
+    _graphs: Optional[GraphCache] = None   # captured forwards by padded shape; None: eager
 
     def __init__(self, model, encode: Callable[[str, int], List[int]], device: torch.device,
                  max_len: int = 256, compute_dtype: torch.dtype = torch.float32,
@@ -173,12 +192,44 @@ class PackedScorer:
     def _gather(self, sums: torch.Tensor, cnt: torch.Tensor):
         return sums, cnt
 
-    def _packed(self, n_segments: int, tokens, seg, pos):
-        """(sums, counts, device counters) of one packed forward."""
+    def _counters(self, extra) -> Optional[Dict[str, torch.Tensor]]:
+        """The device counters, by name, in ``_forward``'s third result."""
+        return None
+
+    def _forward(self, n_segments: int, tokens, seg, pos):
+        """(sums, counts, None) of one packed forward, op by op; a subclass
+        may return a device tensor third, which the fetch copies."""
         sums, cnt = score_packed_fn(n_segments, self.compute_dtype)(self.model, tokens, seg, pos)
         return sums, cnt, None
 
-    def _pack_arrays(self, ids: List[List[int]]):
+    def _replays(self, tokens: torch.Tensor) -> bool:
+        """Whether the packed forward replays its shape's graph: where the
+        scorer keeps graphs and the tokens are on the card."""
+        return self._graphs is not None and tokens.device.type == "cuda"
+
+    def _packed(self, n_segments: int, tokens, seg, pos):
+        """``_forward``'s (sums, counts, third) of one packed forward,
+        replayed where ``_replays``, else run op by op."""
+        if self._replays(tokens):
+            return self._replay(n_segments, tokens, seg, pos)
+        return self._forward(n_segments, tokens, seg, pos)
+
+    def _replay(self, n_segments: int, tokens, seg, pos):
+        """The captured forward of this shape: the inputs copied into its
+        buffers, one replay, the outputs copied out. A new shape's forward
+        is captured over copies of its inputs, after one warm-up forward."""
+        def capture():
+            inputs = tuple(t.clone() for t in (tokens, seg, pos))
+            return inputs, self._graphs.capture(lambda: self._forward(n_segments, *inputs),
+                                                tokens.device)
+
+        inputs, g = self._graphs.get((tokens.device, tuple(tokens.shape), n_segments), capture)
+        for buf, x in zip(inputs, (tokens, seg, pos)):
+            buf.copy_(x)
+        g.replay()
+        return tuple(None if t is None else t.clone() for t in g.out)
+
+    def _pack_rows(self, ids: List[List[int]]):
         """First-fit-decreasing packing of token lists into rows of ``L``
         tokens (at least 64, a multiple of 16, at most ``max_len``):
         (tokens, segment ids (1-based, 0 = padding), positions within each
@@ -200,6 +251,15 @@ class PackedScorer:
                 off += len(s)
         return tokens, seg, pos, len(ids) + 1
 
+    def _pack_arrays(self, ids: List[List[int]]):
+        """``_pack_rows``' arrays with zero rows after the packed ones up to
+        the rows' bucket, and the bins' bucket."""
+        tokens, seg, pos, n_segments = self._pack_rows(ids)
+        pad = np.zeros((_bucket(tokens.shape[0], self.ROWS_LEAST) - tokens.shape[0],
+                        tokens.shape[1]), np.int64)
+        return (*(np.concatenate([a, pad]) for a in (tokens, seg, pos)),
+                _bucket(n_segments, self.BINS_LEAST))
+
     def _score_packed_begin(
         self, ids: List[List[int]], length_penalty: float
     ) -> Callable[[], List[float]]:
@@ -210,11 +270,11 @@ class PackedScorer:
         tokens, seg, pos, n_segments = self._pack_arrays(ids)
         up = lambda a: upload(a, self.device)  # noqa: E731
         with torch.inference_mode():
-            sums, cnt, counters = self._packed(n_segments,
-                                               *map(up, self._my_rows(tokens, seg, pos)))
+            sums, cnt, extra = self._packed(n_segments,
+                                            *map(up, self._my_rows(tokens, seg, pos)))
             sums, cnt = self._meet(sums, cnt)
         return _fetcher(sums, cnt, 1, len(ids), length_penalty, self.span_name + ".fetch",
-                        counters)
+                        self._counters(extra))
 
     def _score_unpacked_begin(
         self, ids: List[List[int]], length_penalty: float

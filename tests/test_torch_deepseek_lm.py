@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from b2txt_tpu_torch.decode import deepseek_lm as D
-from b2txt_tpu_torch.decode.packed_scorer import word_hash_encode
+from b2txt_tpu_torch.decode.packed_scorer import _bucket, word_hash_encode
 from b2txt_tpu_torch.ops import moe
 from b2txt_tpu_torch.utils import profiling
 from benchmark.reference import deepseek_v2 as R
@@ -140,12 +140,12 @@ def test_packing_pads_to_a_few_shapes():
     resc = D.DeepseekV2Rescorer(CFG, enc, params=params(7), device="cpu", max_len=16)
     ids = [enc(t, 16) for t in TEXTS]
     tokens, seg, pos, n = resc._pack_arrays(ids)
-    base = super(D.DeepseekV2Rescorer, resc)._pack_arrays(ids)
+    base = resc._pack_rows(ids)
     assert base[0].shape == (3, 16) and tokens.shape == (4, 16) and n == 16 and base[3] == 7
     for got, want in zip((tokens, seg, pos), base[:3]):
         assert np.array_equal(got[:3], want) and not got[3:].any()
-    assert [D._bucket(k, 2) for k in (1, 2, 3, 5)] == [2, 2, 4, 8]
-    assert [D._bucket(k, 16) for k in (7, 16, 17)] == [16, 16, 32]
+    assert [_bucket(k, 2) for k in (1, 2, 3, 5)] == [2, 2, 4, 8]
+    assert [_bucket(k, 16) for k in (7, 16, 17)] == [16, 16, 32]
     want, _, _ = R.sequence_scores(params(7), asdict(CFG), ids, "cpu")
     np.testing.assert_allclose(resc.score(TEXTS), want, atol=ATOL, rtol=0)
 

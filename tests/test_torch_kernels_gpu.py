@@ -390,7 +390,9 @@ def test_packed_opt_scores_repeat_bit_for_bit(dtype):
     for sums, cnt in runs[1:]:
         assert torch.equal(sums, runs[0][0]) and torch.equal(cnt, runs[0][1])
     assert torch.isfinite(runs[0][0]).all()
-    np.testing.assert_array_equal(runs[0][1][1:].cpu().numpy(), [len(s) for s in ids])
+    counts = runs[0][1][1:].cpu().numpy()    # the bins' bucket: empty bins after the lists'
+    np.testing.assert_array_equal(counts[:len(ids)], [len(s) for s in ids])
+    assert not counts[len(ids):].any()
 
 
 @pytest.mark.gpu
@@ -803,6 +805,91 @@ def test_deepseek_rescorer_graph_replay_equals_the_eager_forward():
     assert moe_experts.launches - before == 2 * 2 * n_moe
     for got, want in ((first, want_a), (got_a, want_a), (got_b, want_b)):
         np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
+# the profiler's host events of a CUDA launch call (benchmark/metrics/online.llm_launches.py)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch")
+
+
+def _opt_on_a_mesh_of_one(texts):
+    """``OPTRescorer(mesh=(1, 1))`` in one NCCL rank: whether it keeps no
+    graph cache, the captures it counted, and its scores."""
+    from b2txt_tpu_torch.decode import opt_lm as O
+    from b2txt_tpu_torch.parallel import make_mesh
+    from b2txt_tpu_torch.utils import profiling
+
+    cfg = O.OPTConfig.tiny()
+    with profiling.tracing():
+        resc = O.OPTRescorer(cfg, encode=O.word_hash_encode(cfg.vocab_size), mesh=make_mesh(1),
+                             compute_dtype=torch.bfloat16)
+        scores = resc.score(texts)
+        captures = profiling.counters().get("opt.graph_captures", 0)
+    return resc._graphs is None, captures, scores
+
+
+@pytest.mark.gpu
+def test_opt_rescorer_graph_replay_equals_the_eager_forward():
+    """OPT's captured packed forward (2 layers at OPT-6.7b's widths, bf16)
+    against the same forward run op by op at the same padded shape, bit for
+    bit, over n-best lists of 1, 9 and 33 texts: one capture a padded shape
+    and none for a shape seen before; a dispatch issues at most 5 launch
+    calls and no host sync, and two dispatches before either fetch keep
+    their own scores; the prefix-KV context path and a mesh of one rank
+    leave the graphs alone."""
+    _need_card()
+    from b2txt_tpu_torch.decode import opt_lm as O
+    from b2txt_tpu_torch.parallel import spawn
+    from b2txt_tpu_torch.utils import profiling
+    from b2txt_tpu_torch.utils.device import upload
+
+    cfg = O.OPTConfig(num_layers=2)
+    sd = O.init_params(cfg, "cuda", torch.bfloat16, torch.Generator(device="cuda").manual_seed(4))
+    enc = O.word_hash_encode(cfg.vocab_size)
+    resc = O.OPTRescorer(cfg, params=sd, encode=enc, encode_cont=lambda t, n: enc(t, n + 1)[1:],
+                         device="cuda", compute_dtype=torch.bfloat16)
+    words = "the cat sat on a mat we will see it tomorrow hello there an apple".split()
+    rng = np.random.default_rng(0)
+    lists = [[" ".join(rng.choice(words, int(rng.integers(1, 14)))) for _ in range(n)]
+             for n in (1, 9, 33)]
+
+    def eager(texts):
+        tokens, seg, pos, n = resc._pack_arrays([enc(t, resc.max_len) for t in texts])
+        with torch.inference_mode():
+            sums, _, _ = resc._forward(n, *(upload(x, resc.device) for x in (tokens, seg, pos)))
+        return sums[1: 1 + len(texts)].cpu().numpy(), (tokens.shape, n)
+
+    want = [eager(texts) for texts in lists]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    launches = []
+    with profiling.tracing():
+        first = [resc.score(texts) for texts in lists]           # captures each shape
+        captured = profiling.counters()["opt.graph_captures"]
+        for texts in lists:
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                fetch = resc.score_async(texts)
+            launches.append(sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS))
+            fetch()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fetches = [resc.score_async(texts) for texts in lists[::-1]]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        again = [f() for f in fetches][::-1]
+        before = len(resc._graphs)
+        resc.score(lists[1], context="the shared conversation so far")
+        captures = profiling.counters()["opt.graph_captures"]
+    assert captured == captures == len({key for _, key in want}) == len(resc._graphs) == before
+    assert resc.prefix_runs == 1
+    assert all(1 <= n <= 5 for n in launches), launches
+    for got, (w, _) in zip(first + again, want + want):
+        np.testing.assert_array_equal(np.float32(got), w)
+
+    no_graphs, mesh_captures, mesh_scores = spawn(_opt_on_a_mesh_of_one, 1, (lists[1],),
+                                                  backend="nccl")[0]
+    assert no_graphs and mesh_captures == 0 and np.isfinite(mesh_scores).all()
 
 
 @pytest.mark.gpu

@@ -130,6 +130,32 @@ def test_rescorer_matches_jax(tiny, pack, dtype):
     assert len(P.pack_sequences([enc(t, 48) for t in texts], 64)) < len(texts)
 
 
+@pytest.mark.parametrize("n", [1, 9, 17, 100])
+def test_bucketed_packing_scores_as_the_unpadded_packing(tiny, n):
+    """The packed rows padded with zero rows to a power of two and the
+    segment bins to one (at least 16), the keys of the rescorer's graphs:
+    the real rows are the plain packing's, and the scores those of the
+    forward over the plain packing's exact shape."""
+    _, _, sd, _ = tiny
+    words = "the cat sat on a mat we will see it tomorrow hello there an apple".split()
+    rng = np.random.default_rng(n)
+    texts = [" ".join(rng.choice(words, int(rng.integers(1, 14)))) for _ in range(n)]
+    resc = P.OPTRescorer(P.OPTConfig.tiny(), params=sd, encode=P.word_hash_encode(97),
+                         device="cpu", max_len=64)
+    ids = [resc.encode(t, resc.max_len) for t in texts]
+    tokens, seg, pos, bins = resc._pack_arrays(ids)
+    plain = resc._pack_rows(ids)
+    rows = plain[0].shape[0]
+    assert tokens.shape[0] == 1 << (rows - 1).bit_length() and plain[3] == n + 1
+    assert bins == max(16, 1 << n.bit_length())
+    for got, want in zip((tokens, seg, pos), plain[:3]):
+        assert np.array_equal(got[:rows], want) and not got[rows:].any()
+    with torch.inference_mode():
+        sums, cnt, _ = resc._forward(plain[3], *(torch.from_numpy(a) for a in plain[:3]))
+    want = sums[1:].numpy() - cnt[1:].numpy() * np.float32(0.5)
+    np.testing.assert_array_equal(np.float32(resc.score(texts, 0.5)), want)
+
+
 @pytest.mark.parametrize("max_len", [64, 16], ids=["prefix_kv", "concatenated"])
 def test_context_matches_jax(tiny, max_len):
     """Context scoring: at max_len 64 through the prefix-KV path (context

@@ -57,6 +57,7 @@ def _rank_cases(sd_np, byte_np, texts):
         resc = _opt(sd, mesh=mesh)
         out[shape] = {**_opt_scores(resc, texts),
                       "unpacked": _opt(sd, mesh=mesh, pack=False).score(texts),
+                      "graphs": resc._graphs,
                       "q_proj": tuple(resc.model.model.decoder.layers[0].self_attn.q_proj
                                       .weight.shape),
                       "byte": device_lm.DeviceCausalLMRescorer(
@@ -147,6 +148,14 @@ def test_opt_mesh_of_one_equals_unsharded_bit_for_bit(one_rank, path):
     bf16 add after the product rounds twice: up to 8.9e-3 apart on these
     scores before that repair)."""
     np.testing.assert_array_equal(one_rank["mesh"][path], one_rank["unsharded"][path])
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_opt_mesh_keeps_no_graphs(ranks, jax_side, shape):
+    """The mesh's forward all-reduces inside its layers, so it runs op by op:
+    no rank keeps a graph cache, where the unsharded rescorer keeps one."""
+    assert all(r[shape]["graphs"] is None for r in ranks)
+    assert _opt({k: torch.from_numpy(v) for k, v in jax_side["sd"].items()})._graphs is not None
 
 
 @pytest.mark.parametrize("shape", MESHES)
